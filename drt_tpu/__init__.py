@@ -1,20 +1,24 @@
-"""drt_tpu — TPU-native differentiable path tracer.
+"""drt_tpu — differentiable path tracer in JAX.
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
 C++ renderer (thalesfm/differentiable-renderer): a Monte-Carlo path tracer
 whose radiance is reverse-mode differentiable w.r.t. shading parameters
 (albedo, specular color, emission) via radiative backpropagation.
 
-Architecture (TPU-first, not a translation of the reference):
+Architecture (not a translation of the reference):
   - flat SoA ray/hit state over a fixed-depth wavefront loop (`lax.scan`)
     instead of the reference's per-ray recursion
     (reference: include/drt/pathtracer.hpp:121-136),
-  - `jax.custom_vjp` radiative backprop that *retraces* paths in the
-    backward pass and scatter-adds parameter gradients, instead of the
-    reference's pointer-based autodiff tape
-    (reference: include/drt/vector.hpp:120-318, integrate.hpp:11-52),
+  - `jax.custom_vjp` radiative backprop that closes parameter gradients
+    from per-bounce residuals, instead of the reference's pointer-based
+    autodiff tape (reference: include/drt/vector.hpp:120-318,
+    integrate.hpp:11-52),
+  - on a GPU, one Pallas kernel (Triton route) that keeps each path in
+    registers and stores 8 B/bounce-ray residuals for the backward
+    (drt_tpu/ops/pathkernel.py),
   - pixel-tile / sample sharding over a `jax.sharding.Mesh` with psum'd
-    parameter gradients for multi-chip scaling (reference: single thread).
+    parameter gradients for multi-device scaling (reference: single
+    thread).
 """
 
 from drt_tpu.config import RenderConfig

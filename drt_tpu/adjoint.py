@@ -8,7 +8,7 @@ the forward's samples (biased mode, integrate.hpp:26-37) or re-draws fresh
 samples at backward time and re-traces (unbiased mode / "radiative
 backprop", integrate.hpp:11-24, 39-52).
 
-TPU-native equivalent: the forward saves NO per-bounce state — only
+Here: the forward saves NO per-bounce state — only
 (params, rays, key). The backward *retraces* the wavefront (replaying the
 forward's counter-based keys in biased mode; folding in a fresh salt in
 unbiased mode), collects compact per-bounce residuals, and closes the
@@ -60,9 +60,8 @@ def _lane_cotangent(g, cfg: RenderConfig):
 def _param_grads(params: Params, scene: Scene, residuals, g, dtype) -> Params:
     """Close the gradient from per-bounce residuals via a reverse scan.
 
-    g: V3 of f[N] per-ray cotangent. Scatter-adds run as per-channel [N]
-    segment_sums, keeping the ray axis on the TPU vector lanes (no [N, 3]
-    temporaries inside the scan).
+    g: V3 of f[N] per-ray cotangent. Scatter-adds run per channel over
+    [N] arrays (no [N, 3] temporaries inside the scan).
     """
     from drt_tpu.ops.vecmath import V3, gatherv
 
@@ -73,11 +72,8 @@ def _param_grads(params: Params, scene: Scene, residuals, g, dtype) -> Params:
     n_rays = g.x.shape[0]
 
     def segv(data: V3, ids, num) -> V3:
-        """V3 of f[N] -> V3 of f[num] by segment id. The tables are tiny
-        (a handful of rows), so this is `num` masked reductions per
-        channel — one fused elementwise+reduce pass on the VPU — instead
-        of `segment_sum`, whose scatter lowering measured ~50x slower on
-        TPU for this workload."""
+        """V3 of f[N] -> V3 of f[num] by segment id: `num` masked
+        reductions per channel (the tables have a handful of rows)."""
         def seg1(c):
             return jnp.stack([jnp.sum(jnp.where(ids == k, c, 0))
                               for k in range(num)])

@@ -65,8 +65,8 @@ def camera_rays(cam: Camera, width: int, height: int,
 
     Returns:
       (orig V3 of f[N], dir V3 of f[N], pdf f[N]) — pdf is identically 1.
-      Scalarized SoA: each component is a rank-1 [N] array riding the TPU
-      vector lanes (see drt_tpu/ops/vecmath.py).
+      Scalarized SoA: each component is a rank-1 [N] array (see
+      drt_tpu/ops/vecmath.py).
     """
     from drt_tpu.ops.vecmath import V3, normalizev
     dtype = cam.forward.dtype

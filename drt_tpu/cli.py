@@ -3,7 +3,7 @@
 Mirrors the reference CLI flags and defaults (reference: src/args.hpp:19-67
 — width 640, height 480, samples 100, min-bounces 1, absorb-prob 0.5,
 required output path) on the hard-coded sample scene (src/render.cpp:26-65),
-plus TPU-framework extras: max depth, spp chunking, seed, PNG output,
+plus framework extras: max depth, spp chunking, seed, PNG output,
 gradient dumping, and the inverse-rendering subcommand.
 
 Usage:
@@ -37,18 +37,12 @@ def _add_render_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--f64", action="store_true",
                    help="trace in float64 (CPU validation mode)")
-    p.add_argument("--backend",
-                   choices=("auto", "xla", "pallas", "pallas-dyn",
-                            "pallas-split", "pallas-split-dyn",
-                            "pallas-regen", "pallas-dyn-regen"),
+    p.add_argument("--backend", choices=("auto", "xla", "pathkernel"),
                    default="auto",
-                   help="auto = fused Pallas megakernels on single-chip "
-                        "TPU at moderate depth (scene-baked <= 24 "
-                        "shapes, memory-resident 'pallas-dyn' beyond; "
-                        "'-split' variants when --bsdf-samples > 1), "
-                        "XLA wavefront otherwise; 'pallas-regen' = "
-                        "path-regeneration kernels (lanes refill with "
-                        "the pixel's next sample, hash-keyed RNG)")
+                   help="auto = the path kernel on a GPU for scenes it "
+                        "bakes (<= 24 shapes, depth <= 32, biased, one "
+                        "BSDF sample per vertex), the XLA wavefront "
+                        "otherwise")
     p.add_argument("--unbiased", action="store_true",
                    help="unbiased gradient mode: the backward retraces "
                         "with fresh samples (integrate.hpp:39-52) instead "
@@ -59,9 +53,8 @@ def _add_render_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--bsdf-samples", type=int, default=1,
                    help="BSDF samples per path vertex in the forward "
                         "estimator (integrate.hpp:56-66 n_samples; "
-                        "lanes are exponential in max_depth — auto "
-                        "routes to the fused lane-split kernels on TPU, "
-                        "XLA elsewhere)")
+                        "lanes are exponential in max_depth; runs on the "
+                        "XLA wavefront)")
 
 
 def _build(args):
@@ -118,8 +111,8 @@ def cmd_render(args) -> int:
 
 def cmd_grad(args) -> int:
     """Render + parameter gradients of the mean image intensity, through
-    the production backend for the platform (fused Pallas adjoint on
-    TPU; `--backend` applies to gradients, not just the forward)."""
+    the production backend for the platform (the path kernel's sweep on
+    a GPU; `--backend` applies to gradients, not just the forward)."""
     import jax
 
     from drt_tpu.parallel.render import make_renderer, resolve_backend
@@ -159,8 +152,8 @@ def cmd_grad_image(args) -> int:
 
     if args.backend not in ("auto", "xla"):
         # grad_image/grad_image_fwd compute the backprop-vs-jvp pair
-        # through the XLA wavefront (the jvp ground truth has no fused
-        # kernel); honoring --backend pallas here would silently lie.
+        # through the XLA wavefront (the jvp ground truth has no kernel);
+        # honoring --backend pathkernel here would silently lie.
         print("grad-image runs the XLA wavefront path (the jvp ground "
               "truth is XLA-only); use --backend auto/xla here, or "
               "`grad` for production-backend gradients", file=sys.stderr)
@@ -258,7 +251,8 @@ def main(argv=None) -> int:
     pi.add_argument("--lr", type=float, default=2e-2)
     pi.add_argument("--log-every", type=int, default=20)
     pi.add_argument("--checkpoint-dir", default=None,
-                    help="orbax checkpoint dir; resumes if it has one")
+                    help="checkpoint dir (one .npz per saved step); "
+                         "resumes from its latest step")
     pi.add_argument("--metrics-jsonl", default=None,
                     help="stream per-step metrics to this JSONL file")
     pi.add_argument("--steps-per-call", type=int, default=8,
@@ -267,6 +261,8 @@ def main(argv=None) -> int:
     pi.set_defaults(fn=cmd_invert)
 
     args = parser.parse_args(argv)
+    from drt_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     return args.fn(args)
 
 

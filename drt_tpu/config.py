@@ -3,7 +3,7 @@
 The reference exposes width/height/samples/min-bounces/absorb-prob as CLI
 flags (reference: src/args.hpp:19-67) and has *unbounded* recursion depth
 terminated only by Russian roulette (reference: include/drt/pathtracer.hpp:121-136).
-A TPU wavefront needs a static trip count, so `max_depth` bounds the bounce
+A wavefront needs a static trip count, so `max_depth` bounds the bounce
 scan; with absorb prob a the truncated tail mass is <= (1-a)^(max_depth -
 min_bounces), e.g. < 1e-9 relative at defaults with max_depth=32.
 """
@@ -12,19 +12,21 @@ from __future__ import annotations
 
 import dataclasses
 
-# Hard HBM budget for a splitting config's per-chunk materialization:
-# the wavefront carry (~64 B/lane: o, d, beta, pixel ids, RNG state at
-# f32) PLUS the prefix tape fused split kernels stage in HBM
-# (split_prefix_tape: max_depth x 3 uniforms per lane = 12*max_depth
-# B/lane — at depth 32 the tape, not the carry, dominates). The tree
-# estimator is exponential in depth BY DESIGN (the reference's
-# integrate n_samples recursion, include/drt/integrate.hpp:56-66);
-# this guard turns a silent multi-TB OOM into a config error.
-MAX_SPLIT_BYTES = 1 << 33  # ~8.6 GB — the practical single-chip ceiling
-# Back-compat alias: the legacy lane cap (2^27 lanes at the 64 B/lane
-# carry cost equals MAX_SPLIT_BYTES); the byte budget above is what the
-# validator actually enforces since it also counts the prefix tape.
-MAX_SPLIT_LANES = 1 << 27
+# Memory budget for a splitting config's per-chunk wavefront: half the
+# device's memory limit where the device reports one, else this default.
+DEFAULT_SPLIT_BYTES = 1 << 33
+
+
+def max_split_bytes() -> int:
+    """Bytes a bsdf_samples > 1 chunk may take: half of the first
+    device's `bytes_limit` (the rest is the image, the backward and
+    XLA's temporaries), or DEFAULT_SPLIT_BYTES if it reports none."""
+    import jax
+
+    stats = jax.devices()[0].memory_stats()
+    if stats and stats.get("bytes_limit"):
+        return int(stats["bytes_limit"]) // 2
+    return DEFAULT_SPLIT_BYTES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,17 +104,28 @@ class RenderConfig:
             lanes_per_ray = self.bsdf_samples ** (self.max_depth - 1)
             rays = self.width * self.height * (self.spp // self.spp_chunks)
             total = rays * lanes_per_ray
-            # 64 B/lane wavefront carry + the HBM prefix tape the fused
-            # split path materializes (fused.split_prefix_tape:
-            # f32[max_depth, 3, lanes] = 12*max_depth B/lane).
-            bytes_per_lane = 64 + 12 * self.max_depth
-            if total * bytes_per_lane > MAX_SPLIT_BYTES:
+            # 64 B/lane wavefront carry + the backward's per-bounce
+            # residuals (renderer.BounceResiduals: P, sc, gate, aid,
+            # eid = 28 B/lane/bounce).
+            bytes_per_lane = 64 + 28 * self.max_depth
+            budget = max_split_bytes()
+            if total * bytes_per_lane > budget:
                 raise ValueError(
                     f"bsdf_samples={self.bsdf_samples} at max_depth="
                     f"{self.max_depth} expands each of the {rays} rays "
                     f"per chunk into bsdf_samples**(max_depth-1) = "
                     f"{lanes_per_ray} leaf lanes ({total:.3g} total; "
-                    f"{total * bytes_per_lane:.3g} B of carry+prefix-tape "
-                    f"> budget {MAX_SPLIT_BYTES} B); lower max_depth / "
+                    f"{total * bytes_per_lane:.3g} B of carry+residuals "
+                    f"> budget {budget} B); lower max_depth / "
                     "bsdf_samples / resolution / spp, or raise "
                     "spp_chunks")
+
+
+def headline_config(width: int = 640, height: int = 480, spp: int = 256,
+                    spp_chunks: int = 16) -> RenderConfig:
+    """The Cornell-box workload that bench.py and chip_smoke.py time
+    (BASELINE.json config 2): depth 5, Russian roulette at 0.5 after
+    bounce 1; smaller sizes for the parity and CPU runs."""
+    return RenderConfig(width=width, height=height, spp=spp, max_depth=5,
+                        min_bounces=1, absorb_prob=0.5,
+                        spp_chunks=spp_chunks)

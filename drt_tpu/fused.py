@@ -1,49 +1,29 @@
-"""Image-level differentiable renderer over the fused Pallas megakernels.
+"""Image-level differentiable renderer over the path kernel.
 
-Composes drt_tpu/ops/megakernel.py's fully-fused tracer/adjoint (camera
-generation + PRNG + wavefront loop in one kernel) into
-`render(params, seeds) -> image`, differentiable in params via the
-radiative-backprop custom VJP. The forward stores only (params, seeds):
-the backward re-seeds the in-kernel PRNG, regenerates the primary rays,
-retraces, and produces parameter gradients in ONE kernel pass per spp
-chunk — the TPU-production counterpart of
-drt_tpu/adjoint.py:make_diff_image_renderer (reference semantics:
-include/drt/integrate.hpp:11-52 radiative backprop; biased mode replays
-the forward's sample streams, unbiased mode redraws the bounce stream
-while keeping the same primary rays).
+Composes drt_tpu/ops/pathkernel.py's forward (camera generation, hash
+RNG and the whole bounce loop per pixel block) and its reverse sweep
+into `render(params, seeds) -> image`, differentiable in params via a
+`jax.custom_vjp`. The forward that a backward follows stores the
+8 B/bounce-ray residuals `(sc, best)`, so the backward is a cheap
+reverse sweep instead of a retrace — radiative backprop in the biased
+(sample-replay) mode, reference: include/drt/integrate.hpp:26-37. The
+unbiased mode (fresh retraces, integrate.hpp:11-24) and bsdf_samples > 1
+stay on the XLA path (drt_tpu/adjoint.py).
 
-RNG note: this path uses the TPU per-core PRNG seeded per (seed, tile),
-not the counter-based threefry streams of the XLA path, so images agree
-with the XLA renderer statistically (same estimator, different sample
-sequence). Exact-parity testing of the identical kernel body goes through
-the tape-mode kernels (tests/test_megakernel.py, tests/test_fused.py).
+The kernel's hash RNG is not the threefry stream of the XLA path, so
+images agree with the XLA renderer statistically; `pathkernel.hash_tapes`
+gives the XLA path the kernel's exact draws for parity tests.
 """
 
 from __future__ import annotations
-
-import dataclasses
-
-import numpy as np
 
 import jax
 import jax.numpy as jnp
 
 from drt_tpu.camera import Camera
 from drt_tpu.config import RenderConfig
-from drt_tpu.ops.megakernel import (CAM_CHUNK_STRIDE, BOUNCE_CHUNK_STRIDE,
-                                    make_fused_adjoint,
-                                    make_fused_collect_tracer,
-                                    make_fused_sweep_adjoint,
-                                    make_fused_tracer)
-from drt_tpu.ops.vecmath import V3
+from drt_tpu.ops.pathkernel import make_path_sweep, make_path_tracer
 from drt_tpu.scene import Params, Scene, albedo_table, emission_table
-
-# Per-chunk seed strides (defined next to the kernels, which advance
-# seeds in-kernel when the spp-chunk loop rides the grid).
-_CAM_STRIDE = CAM_CHUNK_STRIDE
-_BOUNCE_STRIDE = BOUNCE_CHUNK_STRIDE
-_BWD_SALT = np.int32(0x0ADD)
-_BWD_SAMPLE_STRIDE = np.int32(0x51ED)  # per-adjoint-sample seed offset
 
 
 def seeds_from_key(key) -> jnp.ndarray:
@@ -52,1579 +32,41 @@ def seeds_from_key(key) -> jnp.ndarray:
     return data.reshape(-1)[:2].astype(jnp.int32)
 
 
-# Residuals for ALL spp chunks live across the backward and coexist
-# with the radiance buffers and the sweep's working set; cap the HBM
-# spend of the stored adjoint (8 B/bounce-ray) well below the chip's
-# 16 GB (v5e) and fall back to retrace beyond it.
-_STORED_BUDGET_BYTES = 5 << 30
+def make_kernel_image_renderer(scene: Scene, cam: Camera, cfg: RenderConfig,
+                               interpret: bool = False):
+    """Build `render(params, seeds: i32[2]) -> image f[H, W, 3]`,
+    differentiable in params (biased mode, bsdf_samples == 1)."""
+    if cfg.unbiased or cfg.bsdf_samples != 1:
+        raise ValueError("the path kernel renders the biased "
+                         "1-sample-per-vertex estimator; unbiased "
+                         "gradients and bsdf_samples > 1 run on the xla "
+                         "backend")
+    tracer = make_path_tracer(scene, cam, cfg, interpret=interpret)
+    collect = make_path_tracer(scene, cam, cfg, collect=True,
+                               interpret=interpret)
+    sweep = make_path_sweep(scene, cfg, interpret=interpret)
 
-
-def _resolve_adjoint(cfg: RenderConfig, adjoint: str,
-                     n_devices: int = 1, tile_rows: int = 32) -> str:
-    """'auto' -> 'stored' (write (sc, best) residuals in the forward,
-    backward is a cheap reverse sweep) when the mode is biased and the
-    PER-DEVICE residual footprint fits; 'retrace' otherwise. The
-    unbiased adjoint semantically requires fresh retraces
-    (integrate.hpp:11-24). The footprint counts the kernels' actual
-    padded buffers: per-chunk per-device rays round up to whole
-    (tile_rows * 128) tiles (megakernel._pad_rows)."""
-    if adjoint not in ("auto", "stored", "retrace"):
-        raise ValueError(f"unknown adjoint mode {adjoint!r}")
-    if adjoint == "auto":
-        if cfg.unbiased:
-            return "retrace"
-        n_chunk = cfg.width * cfg.height * (cfg.spp // cfg.spp_chunks)
-        local_n = -(-n_chunk // n_devices)
-        tile = tile_rows * 128
-        padded_n = -(-local_n // tile) * tile
-        n_bytes = padded_n * cfg.spp_chunks * cfg.max_depth * 8
-        return "stored" if n_bytes <= _STORED_BUDGET_BYTES else "retrace"
-    if adjoint == "stored" and cfg.unbiased:
-        raise ValueError("adjoint='stored' replays the forward's stream; "
-                         "unbiased mode requires retrace "
-                         "(integrate.hpp:11-24)")
-    return adjoint
-
-
-def _check_fused_cfg(cfg: RenderConfig) -> None:
-    """The megakernels instantiate the 1-sample-per-vertex estimator
-    (the only one the reference app uses, pathtracer.hpp:111); the
-    bsdf_samples tree-splitting estimator lives on the XLA path."""
-    if cfg.bsdf_samples != 1:
-        raise ValueError("bsdf_samples > 1 (per-vertex splitting) is "
-                         "implemented on the xla backend only")
-
-
-def _chunk_seeds(seeds, c):
-    return seeds + jnp.stack([_CAM_STRIDE, _BOUNCE_STRIDE]) * c
-
-
-def _slice_dparams(params: Params, da, de) -> Params:
-    k = params.albedo.shape[0]
-    l = params.emission.shape[0]
-    return Params(albedo=da[:k].astype(params.albedo.dtype),
-                  emission=de[:l].astype(params.emission.dtype))
-
-
-def _chunk_img(L, spp_c: int, h: int, w: int) -> jnp.ndarray:
-    """Radiance V3[N] -> per-pixel chunk image f[H,W,3]. Rays are
-    spp-OUTER (megakernel._camera_rays_static): the spp mean reduces
-    over the major axis, the pixel axis stays minor."""
-    chans = [ch.reshape(spp_c, h, w).mean(axis=0) for ch in L]
-    return jnp.stack(chans, axis=-1)
-
-
-def _g_ray_of(g, spp_c: int, n_chunks: int, dtype) -> V3:
-    """Per-pixel image cotangent -> per-ray cotangent for one chunk
-    (image = mean over chunks of per-pixel spp_c means; ray i of a chunk
-    covers pixel i % (W*H), spp-outer order)."""
-    g_pix = (g / (spp_c * n_chunks)).astype(dtype)
-    return V3(jnp.tile(g_pix[:, :, 0].reshape(-1), spp_c),
-              jnp.tile(g_pix[:, :, 1].reshape(-1), spp_c),
-              jnp.tile(g_pix[:, :, 2].reshape(-1), spp_c))
-
-
-def _build_tape_renderer(scene: Scene, cfg: RenderConfig, adjoint: str,
-                         trace_fn, collect_fn, sweep_fn, adj_fn):
-    """Tape-mode image renderer custom VJP, shared by the single-device
-    and sharded factories (which pass their raw vs shard_map-wrapped
-    kernel callables)."""
-    w, h = cfg.width, cfg.height
-    spp_c = cfg.spp // cfg.spp_chunks
-    if cfg.spp_chunks != 1:
-        raise ValueError("tape-mode fused renderer requires "
-                         "spp_chunks == 1 (one tape per launch)")
-    if cfg.unbiased:
-        raise ValueError("tape-mode fused renderer is biased-only: "
-                         "the tape IS the sample stream")
-
-    def _img(L):
-        return _chunk_img(L, spp_c, h, w)
-
-    @jax.custom_vjp
-    def render_t(params: Params, cam_u, tape) -> jnp.ndarray:
-        alb = albedo_table(scene, params)
-        emi = emission_table(scene, params)
-        return _img(trace_fn(alb, emi, cam_u, tape))
-
-    def fwd_t(params, cam_u, tape):
-        if adjoint == "stored":
-            alb = albedo_table(scene, params)
-            emi = emission_table(scene, params)
-            L, rsc, rbest = collect_fn(alb, emi, cam_u, tape)
-            return _img(L), (params, (rsc, rbest))
-        return render_t(params, cam_u, tape), (params, (cam_u, tape))
-
-    def bwd_t(res, g):
-        params, saved = res
-        alb = albedo_table(scene, params)
-        emi = emission_table(scene, params)
-        g_ray = _g_ray_of(g, spp_c, 1, alb.dtype)
-        if adjoint == "stored":
-            rsc, rbest = saved
-            da, de = sweep_fn(alb, emi, rsc, rbest, g_ray)
-        else:
-            cam_u, tape = saved
-            da, de = adj_fn(alb, emi, cam_u, tape, g_ray)
-        return (_slice_dparams(params, da, de), None, None)
-
-    render_t.defvjp(fwd_t, bwd_t)
-    return render_t
-
-
-def _build_internal_renderer(scene: Scene, cfg: RenderConfig,
-                             adjoint: str, trace_fn, collect_fn,
-                             sweep_fn, adj_fn, chunked: bool = False):
-    """Internal-RNG image renderer custom VJP, shared by the
-    single-device and sharded factories.
-
-    chunked=True: the kernel callables were built with
-    n_chunks=cfg.spp_chunks (the spp-chunk loop rides the kernel grid,
-    seeds advanced in-kernel) — trace/collect return the chunk-SUMMED
-    radiance (+ chunk-dim residuals) from ONE launch, so a train step is
-    ~3 dispatches total instead of ~3*spp_chunks (VERDICT r3 #2a).
-    chunked=False keeps the host-side per-chunk launch loop (used by
-    tape-adjacent paths and as the bitwise reference for tests)."""
-    w, h = cfg.width, cfg.height
-    spp_c = cfg.spp // cfg.spp_chunks
-
-    def _img(L):
-        return _chunk_img(L, spp_c, h, w)
+    def tables(params):
+        return albedo_table(scene, params), emission_table(scene, params)
 
     @jax.custom_vjp
     def render(params: Params, seeds: jnp.ndarray) -> jnp.ndarray:
-        alb = albedo_table(scene, params)
-        emi = emission_table(scene, params)
-        if chunked:
-            return _img(trace_fn(alb, emi, seeds)) / cfg.spp_chunks
-        img = jnp.zeros((h, w, 3), alb.dtype)
-        for c in range(cfg.spp_chunks):
-            img = img + _img(trace_fn(alb, emi, _chunk_seeds(seeds, c)))
-        return img / cfg.spp_chunks
+        return tracer(*tables(params), seeds).astype(params.albedo.dtype)
 
     def fwd(params, seeds):
-        if adjoint != "stored":
-            return render(params, seeds), (params, seeds, None)
-        # Forward with residual collection: the backward then never
-        # retraces — see make_fused_collect_tracer.
-        alb = albedo_table(scene, params)
-        emi = emission_table(scene, params)
-        if chunked:
-            L, rsc, rbest = collect_fn(alb, emi, seeds)
-            return (_img(L) / cfg.spp_chunks,
-                    (params, seeds, (rsc, rbest)))
-        img = jnp.zeros((h, w, 3), alb.dtype)
-        residuals = []
-        for c in range(cfg.spp_chunks):
-            L, rsc, rbest = collect_fn(alb, emi, _chunk_seeds(seeds, c))
-            residuals.append((rsc, rbest))
-            img = img + _img(L)
-        return img / cfg.spp_chunks, (params, seeds, tuple(residuals))
+        img, rsc, rbest = collect(*tables(params), seeds)
+        return img.astype(params.albedo.dtype), (params, rsc, rbest)
 
     def bwd(res, g):
-        params, seeds, residuals = res
-        alb = albedo_table(scene, params)
-        emi = emission_table(scene, params)
-        dtype = alb.dtype
-        g_ray = _g_ray_of(g, spp_c, cfg.spp_chunks, dtype)
+        params, rsc, rbest = res
+        # image = mean over spp of path radiance: each path's cotangent
+        # is its pixel's g / spp.
+        da, de = sweep(*tables(params), rsc, rbest, g / cfg.spp)
         k = params.albedo.shape[0]
         l = params.emission.shape[0]
-        da = jnp.zeros((k, 3), dtype)
-        de = jnp.zeros((l, 3), dtype)
-        n_adj = cfg.adjoint_samples if cfg.unbiased else 1
-        if chunked:
-            if adjoint == "stored":
-                rsc, rbest = residuals
-                da_c, de_c = sweep_fn(alb, emi, rsc, rbest, g_ray)
-                da, de = da_c[:k], de_c[:l]
-            else:
-                for s in range(n_adj):
-                    if cfg.unbiased:
-                        # Fresh bounce stream per sample, same camera
-                        # stream (integrate.hpp:39-52); the in-kernel
-                        # chunk stride commutes with the salt (i32 adds).
-                        salt = (_BWD_SALT
-                                + np.int32(s) * _BWD_SAMPLE_STRIDE)
-                        cs_s = seeds + jnp.stack([jnp.int32(0), salt])
-                    else:
-                        cs_s = seeds
-                    da_c, de_c = adj_fn(alb, emi, cs_s, g_ray)
-                    da = da + da_c[:k] / n_adj
-                    de = de + de_c[:l] / n_adj
-            dparams = Params(albedo=da.astype(params.albedo.dtype),
-                             emission=de.astype(params.emission.dtype))
-            return (dparams, None)
-        for c in range(cfg.spp_chunks):
-            if adjoint == "stored":
-                rsc, rbest = residuals[c]
-                da_c, de_c = sweep_fn(alb, emi, rsc, rbest, g_ray)
-                da = da + da_c[:k]
-                de = de + de_c[:l]
-                continue
-            cs = _chunk_seeds(seeds, c)
-            for s in range(n_adj):
-                if cfg.unbiased:
-                    # Fresh bounce stream per sample, same camera stream
-                    # (integrate.hpp:39-52; the n_samples mean of
-                    # integrate.hpp:15-19).
-                    salt = _BWD_SALT + np.int32(s) * _BWD_SAMPLE_STRIDE
-                    cs_s = cs + jnp.stack([jnp.int32(0), salt])
-                else:
-                    cs_s = cs
-                da_c, de_c = adj_fn(alb, emi, cs_s, g_ray)
-                da = da + da_c[:k] / n_adj
-                de = de + de_c[:l] / n_adj
-        dparams = Params(albedo=da.astype(params.albedo.dtype),
-                         emission=de.astype(params.emission.dtype))
-        return (dparams, None)
+        return (Params(albedo=da[:k].astype(params.albedo.dtype),
+                       emission=de[:l].astype(params.emission.dtype)),
+                None)
 
     render.defvjp(fwd, bwd)
     return render
-
-
-def _resolve_fastmath(fastmath, rng: str) -> bool:
-    """'auto' -> fast-math kernels for the internal-RNG production path
-    (already only statistically equal to the XLA renderer — rsqrt/
-    quotient-cancelled forms are semantically free there); tape-mode
-    kernels stay reference-exact."""
-    if fastmath == "auto":
-        return rng == "internal"
-    return bool(fastmath)
-
-
-def make_fused_image_renderer(scene: Scene, cam: Camera, cfg: RenderConfig,
-                              tile_rows: int = 32,
-                              interpret: bool | None = None,
-                              rng: str = "internal",
-                              adjoint: str = "auto",
-                              fastmath: bool | str = "auto"):
-    """Build `render(params, seeds: i32[2]) -> image f[H,W,3]`.
-
-    Differentiable in params. `seeds` can come from `seeds_from_key`.
-    spp is rendered in `cfg.spp_chunks` sequential kernel launches to
-    bound the per-launch radiance buffer.
-
-    rng="tape" swaps the in-kernel PRNG for explicit uniform inputs:
-    `render(params, cam_u: f[2, N], tape: f[D, 3, N]) -> image` with
-    N = W*H*spp — the exact-parity/verification form (the Pallas
-    interpreter does not emulate the TPU PRNG, so CPU value tests and
-    the jvp gradient-image ground truth use this). Biased backward only
-    (the tape IS the sample stream; requires spp_chunks == 1).
-
-    adjoint: "stored" writes the (sc, best) residuals to HBM during the
-    VJP's forward and makes the backward a cheap reverse sweep (bit-equal
-    gradients, ~4x faster backward); "retrace" rebuilds residuals by
-    re-running the forward in the adjoint kernel (no extra memory; the
-    only option for unbiased mode). "auto" picks stored when biased and
-    the residual footprint fits (_STORED_BUDGET_BYTES).
-    """
-    _check_fused_cfg(cfg)
-    adjoint = _resolve_adjoint(cfg, adjoint, tile_rows=tile_rows)
-    fm = _resolve_fastmath(fastmath, rng)
-    # Internal RNG folds the spp-chunk loop into the kernel grid: one
-    # launch per forward/backward instead of spp_chunks (VERDICT r3 #2a).
-    n_chunks = cfg.spp_chunks if rng == "internal" else 1
-    tracer = make_fused_tracer(scene, cam, cfg, tile_rows=tile_rows,
-                               rng=rng, interpret=interpret, fastmath=fm,
-                               n_chunks=n_chunks)
-    collect = sweep = adj = None
-    if adjoint == "stored":
-        collect = make_fused_collect_tracer(scene, cam, cfg,
-                                            tile_rows=tile_rows,
-                                            rng=rng, interpret=interpret,
-                                            fastmath=fm,
-                                            n_chunks=n_chunks)
-        sweep = make_fused_sweep_adjoint(scene, cfg, tile_rows=tile_rows,
-                                         interpret=interpret,
-                                         n_chunks=n_chunks)
-    else:
-        adj = make_fused_adjoint(scene, cam, cfg, tile_rows=tile_rows,
-                                 rng=rng, interpret=interpret,
-                                 fastmath=fm, n_chunks=n_chunks)
-
-    if rng == "tape":
-        return _build_tape_renderer(scene, cfg, adjoint, tracer, collect,
-                                    sweep, adj)
-    return _build_internal_renderer(scene, cfg, adjoint, tracer, collect,
-                                    sweep, adj, chunked=True)
-
-
-def split_prefix_tape(seeds, chunk: int, cfg: RenderConfig):
-    """One spp chunk's prefix-shared uniforms for the fused splitting
-    renderer: (cam_u f[2, n_lanes], tape f[D, 3, n_lanes]) with
-    n_lanes = W*H*spp_c * M, lanes ordered M-outer. Lanes sharing a
-    path prefix (renderer._trace_rays_splitting digit convention, j_1
-    most significant) read identical draws, so the plain per-lane
-    tracer reproduces the recursive n-sample tree estimator exactly.
-    Deterministic in (seeds, chunk) — the backward regenerates it."""
-    from drt_tpu.renderer import lane_count
-
-    n_s = cfg.bsdf_samples
-    M = lane_count(cfg)
-    D = cfg.max_depth
-    n_cam = cfg.width * cfg.height * (cfg.spp // cfg.spp_chunks)
-    dtype = jnp.float32
-    key = jax.random.wrap_key_data(
-        _chunk_seeds(seeds, chunk).astype(jnp.uint32))
-    cam_u = jax.random.uniform(jax.random.fold_in(key, D + 1),
-                               (2, n_cam), dtype)
-    cam_u = jnp.tile(cam_u, (1, M))  # all M lanes share the primary ray
-
-    def expand(u):
-        # [count, n_cam] prefix draws -> m-outer flat [M * n_cam]: lane
-        # m reads row m // (M / count), its prefix.
-        return jnp.repeat(u, M // u.shape[0], axis=0).reshape(-1)
-
-    rows = []
-    for b in range(D):
-        kb = jax.random.fold_in(key, b)
-
-        def draw(count, salt):
-            return expand(jax.random.uniform(
-                jax.random.fold_in(kb, salt), (count, n_cam), dtype))
-
-        u_rr = draw(min(n_s ** b, M), 0)
-        n_child = min(n_s ** (b + 1), M)
-        rows.append(jnp.stack([u_rr, draw(n_child, 1), draw(n_child, 2)]))
-    return cam_u, jnp.stack(rows)
-
-
-def _check_split_cfg(cfg: RenderConfig):
-    if cfg.bsdf_samples < 2:
-        raise ValueError("use make_fused_image_renderer / "
-                         "make_dyn_image_renderer for bsdf_samples == 1")
-    if cfg.unbiased:
-        raise ValueError("fused splitting is biased-only; use the xla "
-                         "backend for unbiased splitting gradients")
-
-
-def _resolve_split_adjoint(cfg: RenderConfig, tile_rows: int,
-                           adjoint: str, n_lanes: int) -> str:
-    if adjoint not in ("auto", "stored", "retrace"):
-        raise ValueError(f"unknown adjoint mode {adjoint!r}")
-    if adjoint == "auto":
-        tile = tile_rows * 128
-        padded = -(-n_lanes // tile) * tile
-        adjoint = ("stored" if padded * cfg.spp_chunks * cfg.max_depth * 8
-                   <= _STORED_BUDGET_BYTES else "retrace")
-    return adjoint
-
-
-def make_split_fused_image_renderer(scene: Scene, cam: Camera,
-                                    cfg: RenderConfig,
-                                    tile_rows: int = 32,
-                                    interpret: bool | None = None,
-                                    adjoint: str = "auto"):
-    """bsdf_samples > 1 on the FUSED path: the per-vertex tree-splitting
-    estimator (the reference integrate's n_samples at every scatter,
-    include/drt/integrate.hpp:56-66 via pathtracer.hpp:96-112) as
-    M = bsdf_samples^(max_depth-1) leaf lanes per camera sample.
-
-    The megakernel itself is lane-oblivious: uniforms are generated
-    XLA-side (threefry) with PREFIX SHARING — lanes that share a path
-    prefix consume identical draws, exactly like the XLA splitting
-    tracer (renderer._trace_rays_splitting) — and fed to the TAPE-mode
-    kernels. Lane ordering is M-outer (lane = m * spp_c*W*H + ray), so
-    the huge pixel axis stays minor and the kernel's idx -> pixel
-    mapping (idx % npix) is unchanged.
-
-    Biased gradient mode only (stored or retrace adjoints; the tape IS
-    the sample stream) — unbiased splitting lives on the XLA path.
-    Returns `render(params, seeds: i32[2]) -> image`, differentiable.
-    """
-    from drt_tpu.renderer import lane_count
-
-    _check_split_cfg(cfg)
-    n_lanes = (cfg.width * cfg.height * (cfg.spp // cfg.spp_chunks)
-               * lane_count(cfg))
-    adjoint = _resolve_split_adjoint(cfg, tile_rows, adjoint, n_lanes)
-
-    kw = dict(tile_rows=tile_rows, rng="tape", interpret=interpret,
-              n_rays=n_lanes)
-    tracer = make_fused_tracer(scene, cam, cfg, **kw)
-    collect = sweep = adj = None
-    if adjoint == "stored":
-        collect = make_fused_collect_tracer(scene, cam, cfg, **kw)
-        sweep = make_fused_sweep_adjoint(scene, cfg, tile_rows=tile_rows,
-                                         interpret=interpret)
-    else:
-        adj = make_fused_adjoint(scene, cam, cfg, **kw)
-    return _build_split_renderer(scene, cfg, adjoint, tracer, collect,
-                                 sweep, adj)
-
-
-def make_split_dyn_image_renderer(scene: Scene, cam: Camera,
-                                  cfg: RenderConfig,
-                                  tile_rows: int = 32,
-                                  interpret: bool | None = None,
-                                  adjoint: str = "auto",
-                                  unroll_shapes: int = 16):
-    """bsdf_samples > 1 on the memory-resident-scene (dyn) path: the
-    same prefix-shared lane-splitting estimator as
-    make_split_fused_image_renderer, over the dyn tape-mode kernels
-    (ops/dynkernel.py) — so triangle-mesh scenes past the baked unroll
-    budget keep the fused splitting speedup too. Accepts a Scene or a
-    prebuilt DynScene (custom cluster_k)."""
-    from drt_tpu.ops.dynkernel import (DynScene, make_dyn_adjoint,
-                                       make_dyn_collect_tracer,
-                                       make_dyn_sweep_adjoint,
-                                       make_dyn_tracer)
-    from drt_tpu.renderer import lane_count
-
-    _check_split_cfg(cfg)
-    n_lanes = (cfg.width * cfg.height * (cfg.spp // cfg.spp_chunks)
-               * lane_count(cfg))
-    adjoint = _resolve_split_adjoint(cfg, tile_rows, adjoint, n_lanes)
-    ds = DynScene.of(scene)
-    scene = ds.scene
-    scn = ds.operands
-    kw = dict(tile_rows=tile_rows, rng="tape", interpret=interpret,
-              n_rays=n_lanes, unroll_shapes=unroll_shapes)
-    tracer0 = make_dyn_tracer(ds, cam, cfg, **kw)
-
-    def tracer(alb, emi, cam_u, tape):
-        return tracer0(alb, emi, scn, cam_u, tape)
-
-    collect = sweep = adj = None
-    if adjoint == "stored":
-        collect0 = make_dyn_collect_tracer(ds, cam, cfg, **kw)
-
-        def collect(alb, emi, cam_u, tape):
-            return collect0(alb, emi, scn, cam_u, tape)
-
-        sweep = make_dyn_sweep_adjoint(ds, cfg, tile_rows=tile_rows,
-                                       interpret=interpret)
-    else:
-        adj0 = make_dyn_adjoint(ds, cam, cfg, **kw)
-
-        def adj(alb, emi, cam_u, tape, g):
-            return adj0(alb, emi, scn, cam_u, tape, g.x, g.y, g.z)
-
-    return _build_split_renderer(scene, cfg, adjoint, tracer, collect,
-                                 sweep, adj)
-
-
-def make_sharded_split_image_renderer(scene: Scene, cam: Camera,
-                                      cfg: RenderConfig, mesh,
-                                      tile_rows: int = 32,
-                                      interpret: bool | None = None,
-                                      adjoint: str = "auto",
-                                      dyn: bool = False,
-                                      unroll_shapes: int = 16):
-    """bsdf_samples > 1 over a device mesh, by composition: the
-    prefix-shared M-lane tape (split_prefix_tape) is generated globally
-    XLA-side — the SPMD partitioner shards the threefry work with the
-    ray axis — and consumed by the sharded TAPE-mode kernels with spp
-    expanded to spp * M (the kernels are lane-oblivious; their image
-    mean over spp' = spp*M lanes IS the splitting estimator's mean, and
-    the tape-mode custom VJP's g / spp' matches the split builder's
-    per-lane cotangent). dyn=True uses the memory-resident kernels.
-
-    Returns `render(params, seeds: i32[2]) -> image`, differentiable in
-    params; spp_chunks == 1 (tape-mode constraint)."""
-    import dataclasses
-
-    from drt_tpu.renderer import lane_count
-
-    _check_split_cfg(cfg)
-    if cfg.spp_chunks != 1:
-        raise ValueError("sharded splitting requires spp_chunks == 1 "
-                         "(one tape per launch)")
-    M = lane_count(cfg)
-    cfg_l = dataclasses.replace(cfg, spp=cfg.spp * M, bsdf_samples=1)
-    if dyn:
-        inner = make_sharded_dyn_image_renderer(
-            scene, cam, cfg_l, mesh, tile_rows=tile_rows, rng="tape",
-            interpret=interpret, adjoint=adjoint,
-            unroll_shapes=unroll_shapes)
-    else:
-        inner = make_sharded_fused_image_renderer(
-            scene, cam, cfg_l, mesh, tile_rows=tile_rows, rng="tape",
-            interpret=interpret, adjoint=adjoint)
-
-    def render(params: Params, seeds: jnp.ndarray) -> jnp.ndarray:
-        cam_u, tape = split_prefix_tape(seeds, 0, cfg)
-        return inner(params, cam_u, tape)
-
-    return render
-
-
-def _build_split_renderer(scene: Scene, cfg: RenderConfig, adjoint: str,
-                          tracer, collect, sweep, adj):
-    """Splitting-renderer custom VJP, shared by the baked and dyn
-    factories (which pass kernel callables bound to the
-    `(alb, emi, cam_u, tape[, g_ray])` signature)."""
-    from drt_tpu.renderer import lane_count
-
-    M = lane_count(cfg)
-    w, h = cfg.width, cfg.height
-    spp_c = cfg.spp // cfg.spp_chunks
-    dtype = jnp.float32
-
-    def _expanded_tape(seeds, c):
-        return split_prefix_tape(seeds, c, cfg)
-
-    def _img(L):
-        chans = [ch.reshape(M * spp_c, h, w).mean(axis=0) for ch in L]
-        return jnp.stack(chans, axis=-1)
-
-    def _g_lane(g):
-        g_pix = (g / (spp_c * cfg.spp_chunks * M)).astype(dtype)
-        return V3(*(jnp.tile(g_pix[:, :, c].reshape(-1), M * spp_c)
-                    for c in range(3)))
-
-    @jax.custom_vjp
-    def render(params: Params, seeds: jnp.ndarray) -> jnp.ndarray:
-        alb = albedo_table(scene, params)
-        emi = emission_table(scene, params)
-        img = jnp.zeros((h, w, 3), alb.dtype)
-        for c in range(cfg.spp_chunks):
-            cam_u, tp = _expanded_tape(seeds, c)
-            img = img + _img(tracer(alb, emi, cam_u, tp))
-        return img / cfg.spp_chunks
-
-    def fwd(params, seeds):
-        if adjoint != "stored":
-            return render(params, seeds), (params, seeds, None)
-        alb = albedo_table(scene, params)
-        emi = emission_table(scene, params)
-        img = jnp.zeros((h, w, 3), alb.dtype)
-        residuals = []
-        for c in range(cfg.spp_chunks):
-            cam_u, tp = _expanded_tape(seeds, c)
-            L, rsc, rbest = collect(alb, emi, cam_u, tp)
-            residuals.append((rsc, rbest))
-            img = img + _img(L)
-        return img / cfg.spp_chunks, (params, seeds, tuple(residuals))
-
-    def bwd(res, g):
-        params, seeds, residuals = res
-        alb = albedo_table(scene, params)
-        emi = emission_table(scene, params)
-        g_ray = _g_lane(g)
-        k = params.albedo.shape[0]
-        l = params.emission.shape[0]
-        da = jnp.zeros((k, 3), dtype)
-        de = jnp.zeros((l, 3), dtype)
-        for c in range(cfg.spp_chunks):
-            if adjoint == "stored":
-                rsc, rbest = residuals[c]
-                da_c, de_c = sweep(alb, emi, rsc, rbest, g_ray)
-            else:
-                cam_u, tp = _expanded_tape(seeds, c)
-                da_c, de_c = adj(alb, emi, cam_u, tp, g_ray)
-            da = da + da_c[:k]
-            de = de + de_c[:l]
-        dparams = Params(albedo=da.astype(params.albedo.dtype),
-                         emission=de.astype(params.emission.dtype))
-        return (dparams, None)
-
-    render.defvjp(fwd, bwd)
-    return render
-
-
-def make_dyn_image_renderer(scene: Scene, cam: Camera, cfg: RenderConfig,
-                            tile_rows: int = 32,
-                            interpret: bool | None = None,
-                            rng: str = "internal",
-                            adjoint: str = "auto",
-                            unroll_shapes: int = 16,
-                            fastmath: bool | str = "auto"):
-    """Memory-resident-scene production path: `render(params, seeds) ->
-    image`, differentiable in params, over the dyn megakernels
-    (drt_tpu/ops/dynkernel.py — scene arrays read from SMEM at run
-    time, nearest-hit as a fori_loop). Same RNG/stream semantics and
-    adjoint modes as make_fused_image_renderer; use for scenes past the
-    baked kernels' unroll budget (triangle meshes) or when scene values
-    change often."""
-    from drt_tpu.ops.dynkernel import (DynScene, make_dyn_adjoint,
-                                       make_dyn_collect_tracer,
-                                       make_dyn_sweep_adjoint,
-                                       make_dyn_tracer)
-
-    _check_fused_cfg(cfg)
-    adjoint = _resolve_adjoint(cfg, adjoint, tile_rows=tile_rows)
-    ds = DynScene.of(scene)
-    scene = ds.scene  # accept a prebuilt DynScene (custom cluster_k)
-    scn = ds.operands
-    n_chunks = cfg.spp_chunks if rng == "internal" else 1
-    kw = dict(tile_rows=tile_rows, rng=rng, interpret=interpret,
-              unroll_shapes=unroll_shapes, n_chunks=n_chunks,
-              fastmath=_resolve_fastmath(fastmath, rng))
-    tracer0 = make_dyn_tracer(ds, cam, cfg, **kw)
-
-    def trace_fn(alb, emi, *streams):
-        return tracer0(alb, emi, scn, *streams)
-
-    collect_fn = sweep_fn = adj_fn = None
-    if adjoint == "stored":
-        collect0 = make_dyn_collect_tracer(ds, cam, cfg, **kw)
-
-        def collect_fn(alb, emi, *streams):
-            return collect0(alb, emi, scn, *streams)
-
-        sweep_fn = make_dyn_sweep_adjoint(ds, cfg, tile_rows=tile_rows,
-                                          interpret=interpret,
-                                          n_chunks=n_chunks)
-    else:
-        adj0 = make_dyn_adjoint(ds, cam, cfg, **kw)
-
-        def adj_fn(alb, emi, *args):
-            *streams, g = args
-            return adj0(alb, emi, scn, *streams, g.x, g.y, g.z)
-
-    if rng == "tape":
-        return _build_tape_renderer(scene, cfg, adjoint, trace_fn,
-                                    collect_fn, sweep_fn, adj_fn)
-    return _build_internal_renderer(scene, cfg, adjoint, trace_fn,
-                                    collect_fn, sweep_fn, adj_fn,
-                                    chunked=True)
-
-
-def make_sharded_dyn_image_renderer(scene: Scene, cam: Camera,
-                                    cfg: RenderConfig, mesh,
-                                    tile_rows: int = 32,
-                                    interpret: bool | None = None,
-                                    rng: str = "internal",
-                                    adjoint: str = "auto",
-                                    unroll_shapes: int = 16,
-                                    fastmath: bool | str = "auto"):
-    """Sharded memory-resident-scene path: the dyn megakernels run
-    per-device under `shard_map` (scene operands replicated, rays
-    sharded by global `tile_base`, parameter-grad partials psum'd) —
-    the dyn counterpart of make_sharded_fused_image_renderer."""
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    from drt_tpu.ops.dynkernel import (DynScene, make_dyn_adjoint,
-                                       make_dyn_collect_tracer,
-                                       make_dyn_sweep_adjoint,
-                                       make_dyn_tracer)
-
-    names = tuple(mesh.axis_names)
-    n_dev = int(np.prod(mesh.devices.shape))
-    w, h = cfg.width, cfg.height
-    spp_c = cfg.spp // cfg.spp_chunks
-    n = w * h * spp_c
-    tile = tile_rows * 128
-    if n % (n_dev * tile) != 0:
-        raise ValueError(
-            f"rays per chunk ({n}) must split into whole {tile}-ray tiles "
-            f"per device over {n_dev} devices; adjust width/height/spp")
-    local_n = n // n_dev
-    local_tiles = local_n // tile
-
-    _check_fused_cfg(cfg)
-    adjoint = _resolve_adjoint(cfg, adjoint, n_devices=n_dev,
-                               tile_rows=tile_rows)
-    ds = DynScene.of(scene)
-    scene = ds.scene  # accept a prebuilt DynScene (custom cluster_k)
-    scn = ds.operands
-    n_chunks = cfg.spp_chunks if rng == "internal" else 1
-    kw = dict(tile_rows=tile_rows, rng=rng, interpret=interpret,
-              n_rays=local_n, unroll_shapes=unroll_shapes,
-              n_chunks=n_chunks,
-              fastmath=_resolve_fastmath(fastmath, rng))
-    tracer = make_dyn_tracer(ds, cam, cfg, **kw)
-    collect = sweep = adj = None
-    if adjoint == "stored":
-        collect = make_dyn_collect_tracer(ds, cam, cfg, **kw)
-        sweep = make_dyn_sweep_adjoint(ds, cfg, tile_rows=tile_rows,
-                                       interpret=interpret,
-                                       n_chunks=n_chunks)
-    else:
-        adj = make_dyn_adjoint(ds, cam, cfg, **kw)
-
-    def _dev_index():
-        idx = 0
-        for name in names:
-            idx = idx * jax.lax.axis_size(name) + jax.lax.axis_index(name)
-        return idx
-
-    ray_p = P(names)
-    v3_ray = V3(ray_p, ray_p, ray_p)
-    res_p = P(None, names) if n_chunks == 1 else P(None, None, names)
-
-    if rng == "tape":
-        if cfg.spp_chunks != 1:
-            raise ValueError("tape-mode sharded renderer requires "
-                             "spp_chunks == 1")
-        if cfg.unbiased:
-            raise ValueError("tape-mode sharded renderer is biased-only")
-        cam_u_p = P(None, names)
-        tape_p = P(None, None, names)
-        stream_specs = (cam_u_p, tape_p)
-    else:
-        stream_specs = (P(),)  # seeds replicated
-
-    def _shard_trace(alb, emi, scn_, *streams):
-        return tracer(alb, emi, scn_, *streams,
-                      tile_base=_dev_index() * local_tiles)
-
-    sharded_trace = shard_map(_shard_trace, mesh=mesh,
-                              in_specs=(P(), P(), P(), *stream_specs),
-                              out_specs=v3_ray, check_vma=False)
-
-    def trace_fn(alb, emi, *streams):
-        return sharded_trace(alb, emi, scn, *streams)
-
-    collect_fn = sweep_fn = adj_fn = None
-    if adjoint == "stored":
-        def _shard_collect(alb, emi, scn_, *streams):
-            return collect(alb, emi, scn_, *streams,
-                           tile_base=_dev_index() * local_tiles)
-
-        def _shard_sweep(alb, emi, rsc, rrow, g):
-            da, de = sweep(alb, emi, rsc, rrow, g)
-            return jax.lax.psum((da, de), names)
-
-        sharded_collect = shard_map(
-            _shard_collect, mesh=mesh,
-            in_specs=(P(), P(), P(), *stream_specs),
-            out_specs=(v3_ray, res_p, res_p), check_vma=False)
-        sharded_sweep = shard_map(
-            _shard_sweep, mesh=mesh,
-            in_specs=(P(), P(), res_p, res_p, v3_ray),
-            out_specs=(P(), P()), check_vma=False)
-
-        def collect_fn(alb, emi, *streams):
-            return sharded_collect(alb, emi, scn, *streams)
-
-        sweep_fn = sharded_sweep
-    else:
-        def _shard_adj(alb, emi, scn_, *args):
-            *streams, gx, gy, gz = args
-            da, de = adj(alb, emi, scn_, *streams, gx, gy, gz,
-                         tile_base=_dev_index() * local_tiles)
-            return jax.lax.psum((da, de), names)
-
-        sharded_adj = shard_map(
-            _shard_adj, mesh=mesh,
-            in_specs=(P(), P(), P(), *stream_specs,
-                      ray_p, ray_p, ray_p),
-            out_specs=(P(), P()), check_vma=False)
-
-        def adj_fn(alb, emi, *args):
-            *streams, g = args
-            return sharded_adj(alb, emi, scn, *streams, g.x, g.y, g.z)
-
-    if rng == "tape":
-        return _build_tape_renderer(scene, cfg, adjoint, trace_fn,
-                                    collect_fn, sweep_fn, adj_fn)
-    return _build_internal_renderer(scene, cfg, adjoint, trace_fn,
-                                    collect_fn, sweep_fn, adj_fn,
-                                    chunked=True)
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def make_compacted_image_renderer(scene: Scene, cam: Camera,
-                                  cfg: RenderConfig,
-                                  splits: tuple[int, ...] | None = None,
-                                  tile_rows: int = 32,
-                                  margin: float = 0.05,
-                                  interpret: bool | None = None):
-    """Single-chip production path with inter-segment ray compaction.
-
-    Russian roulette kills ~absorb of the wavefront per bounce past
-    min_bounces, but a lockstep kernel pays every lane at every bounce.
-    Here the bounce loop runs as segments split at `splits`; between
-    segments the surviving rays are stream-compacted (nonzero + gather,
-    ~0.25 ms for a 4.9M-ray wavefront) so later segments run on smaller
-    wavefronts with capacity n * ((1-absorb)^{RR bounces so far} +
-    margin). The backward replays each segment's PRNG stream and stitches
-    gradients through the boundary suffix radiance (see
-    ops/megakernel.py); the forward saves each chunk's compacted entry
-    states as custom-VJP residuals so the backward runs no extra forward.
-
-    Biased gradient mode only (cfg.unbiased=False): the unbiased adjoint
-    redraws samples, which would invalidate the saved compaction — use
-    make_fused_image_renderer for unbiased gradients.
-
-    Capacity overflow note: K is an analytic RR-survival bound plus
-    `margin`; overflow probability is astronomically small (Binomial
-    tails at n ~ 10^6) but nonzero — overflowing rays would be dropped.
-
-    STATUS — EXPERIMENTAL, measured NON-PROFITABLE on TPU v5e: the
-    numerics are exact (tests/test_segments.py; on-chip 0.999 pixel
-    correlation, FD grads to 5e-5) but XLA gathers/scatters at this size
-    execute at ~0.8 GB/s on this stack (~24 ms per 2.7M-element gather,
-    ~44 ms per nonzero), so a compaction step costs ~300 ms/chunk against
-    ~2.5 ms of saved kernel time — at ANY depth. Kept as the reference
-    implementation of wavefront compaction + segment-adjoint stitching;
-    use make_fused_image_renderer for production (docs/KERNELS.md).
-    """
-    from drt_tpu.ops.megakernel import (make_fused_segment_adjoint,
-                                        make_fused_segment_tracer)
-
-    if cfg.unbiased:
-        raise ValueError("compacted renderer supports biased mode only")
-    D = cfg.max_depth
-    if splits is None:
-        splits = (min(cfg.min_bounces + 1, D - 1),)
-    splits = tuple(sorted(splits))
-    assert all(0 < s < D for s in splits)
-    bounds = [0, *splits, D]
-    w, h = cfg.width, cfg.height
-    spp_c = cfg.spp // cfg.spp_chunks
-    n = w * h * spp_c
-    tile = tile_rows * 128
-
-    # Per-segment ray capacities from the analytic RR survival bound.
-    caps = [n]
-    for s in splits:
-        rr_bounces = max(0, s - cfg.min_bounces)
-        frac = (1.0 - cfg.absorb_prob) ** rr_bounces
-        caps.append(min(n, _round_up(int(np.ceil(n * (frac + margin))),
-                                     tile)))
-
-    tracers = []
-    adjoints = []
-    for i in range(len(bounds) - 1):
-        b0, b1 = bounds[i], bounds[i + 1]
-        tracers.append(make_fused_segment_tracer(
-            scene, cam, cfg, b0, b1, n_rays=caps[i], tile_rows=tile_rows,
-            rng="internal", interpret=interpret))
-        adjoints.append(make_fused_segment_adjoint(
-            scene, cam, cfg, b0, b1, n_rays=caps[i], tile_rows=tile_rows,
-            rng="internal", interpret=interpret))
-    n_seg = len(tracers)
-
-    def _chunk_seeds(seeds, c):
-        return seeds + jnp.stack([_CAM_STRIDE, _BOUNCE_STRIDE]) * c
-
-    def _pad1(x):
-        return jnp.pad(x, (0, 1))
-
-    def _forward_chunk(alb, emi, cs):
-        """Returns (L_total f32 channels [n], per-segment residuals)."""
-        dtype = alb.dtype
-        acc = [jnp.zeros(n + 1, dtype) for _ in range(3)]
-        cidx = None  # global ray index of each compacted lane
-        state = None
-        residuals = []
-        for i in range(n_seg):
-            if i == 0:
-                out = tracers[0](alb, emi, cs)
-            else:
-                out = tracers[i](alb, emi, cs, *state)
-            if i < n_seg - 1:
-                L, nxt_state = out
-            else:
-                L, nxt_state = out, None
-            for c in range(3):
-                ch = (L.x, L.y, L.z)[c]
-                if cidx is None:
-                    acc[c] = acc[c].at[:n].add(ch)
-                else:
-                    # cidx is injective into rays (only pad-slot entries
-                    # repeat), so scatter-SET into a fresh buffer + add:
-                    # TPU scatter-add serializes (~100 ms at 2.7M
-                    # indices); scatter-set measures ~0.02 ms.
-                    seg = jnp.zeros(n + 1, dtype).at[cidx].set(ch)
-                    acc[c] = acc[c] + seg
-            if nxt_state is None:
-                break
-            alive = nxt_state[9]
-            k_next = caps[i + 1]
-            fill = caps[i]  # pad slot in the CURRENT segment's space
-            # Capacity-overflow observability (rays beyond k_next would
-            # be silently dropped by the sized nonzero): report when the
-            # astronomically-unlikely Binomial tail actually fires.
-            n_alive = jnp.sum((alive > 0).astype(jnp.int32))
-            jax.lax.cond(
-                n_alive > k_next,
-                lambda na: jax.debug.print(
-                    "drt_tpu compacted renderer: RR survivor overflow — "
-                    "{} alive rays > capacity {} at segment boundary "
-                    "(overflowing rays dropped; image/grad biased). "
-                    "Increase `margin`.", na, k_next),
-                lambda na: None, n_alive)
-            idx = jnp.nonzero(alive > 0, size=k_next, fill_value=fill)[0]
-            state = [_pad1(c2)[idx] for c2 in nxt_state]
-            # Compose the global ray index; fill lanes map to the global
-            # pad slot n (they carry alive=0, so they contribute zeros).
-            cidx = (idx if cidx is None
-                    else jnp.pad(cidx, (0, 1), constant_values=n)[idx])
-            residuals.append((idx, cidx, tuple(state)))
-        return [a[:n] for a in acc], residuals
-
-    @jax.custom_vjp
-    def render(params: Params, seeds: jnp.ndarray) -> jnp.ndarray:
-        img, _ = _render_with_res(params, seeds)
-        return img
-
-    def _render_with_res(params, seeds):
-        alb = albedo_table(scene, params)
-        emi = emission_table(scene, params)
-        img = jnp.zeros((h, w, 3), alb.dtype)
-        all_res = []
-        for c in range(cfg.spp_chunks):
-            chans, residuals = _forward_chunk(alb, emi,
-                                              _chunk_seeds(seeds, c))
-            chans = [ch.reshape(spp_c, h, w).mean(axis=0) for ch in chans]
-            img = img + jnp.stack(chans, axis=-1)
-            all_res.append(tuple(residuals))
-        return img / cfg.spp_chunks, tuple(all_res)
-
-    def fwd(params, seeds):
-        img, all_res = _render_with_res(params, seeds)
-        return img, (params, seeds, all_res)
-
-    def bwd(res, g):
-        params, seeds, all_res = res
-        alb = albedo_table(scene, params)
-        emi = emission_table(scene, params)
-        dtype = alb.dtype
-        g_ray = _g_ray_of(g, spp_c, cfg.spp_chunks, dtype)
-        g_flat = [g_ray.x, g_ray.y, g_ray.z]
-        k = params.albedo.shape[0]
-        l = params.emission.shape[0]
-        da = jnp.zeros((k, 3), dtype)
-        de = jnp.zeros((l, 3), dtype)
-        for c in range(cfg.spp_chunks):
-            cs = _chunk_seeds(seeds, c)
-            residuals = all_res[c]
-            # Adjoint sweep from the LAST segment backwards, chaining S.
-            S3 = None
-            for i in reversed(range(n_seg)):
-                if i == 0:
-                    gseg = g_flat
-                    out = adjoints[0](alb, emi, cs, *gseg, *(S3 or ()))
-                    da_i, de_i = out
-                else:
-                    idx, cidx, state = residuals[i - 1]
-                    gseg = [_pad1(gc)[cidx] for gc in g_flat]
-                    out = adjoints[i](alb, emi, cs, *state, *gseg,
-                                      *(S3 or ()))
-                    da_i, de_i, S = out
-                    # Scatter S back to the previous segment's lanes.
-                    prev_cap = caps[i - 1]
-                    S3 = [jnp.zeros(prev_cap + 1, dtype).at[idx]
-                          .set(ch)[:prev_cap] for ch in S]
-                da = da + da_i[:k]
-                de = de + de_i[:l]
-        dparams = Params(albedo=da.astype(params.albedo.dtype),
-                         emission=de.astype(params.emission.dtype))
-        return (dparams, None)
-
-    render.defvjp(fwd, bwd)
-    return render
-
-
-def make_sharded_fused_image_renderer(scene: Scene, cam: Camera,
-                                      cfg: RenderConfig, mesh,
-                                      tile_rows: int = 32,
-                                      interpret: bool | None = None,
-                                      rng: str = "internal",
-                                      adjoint: str = "auto",
-                                      fastmath: bool | str = "auto"):
-    """Sharded production path: the fused megakernels run per-device
-    under `shard_map` over `mesh`, each shard tracing its slice of the
-    global ray index space via `tile_base`; parameter-gradient partials
-    are psum'd over the mesh (the multi-chip analogue of the reference's
-    single-heap `m_grad +=`, vector.hpp:185-191).
-
-    Returns `render(params, seeds) -> image`, differentiable in params.
-
-    rng="tape": `render(params, cam_u: f[2, N], tape: f[D, 3, N])` with
-    the GLOBAL uniform arrays sharded over the ray axis — each device's
-    kernel consumes its slice at its `tile_base`. This is the form that
-    makes the production sharded path value-testable on a virtual CPU
-    mesh (interpret-mode PRNG is stubbed); biased backward only,
-    spp_chunks == 1 (see make_fused_image_renderer).
-    """
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    names = tuple(mesh.axis_names)
-    n_dev = int(np.prod(mesh.devices.shape))
-    w, h = cfg.width, cfg.height
-    spp_c = cfg.spp // cfg.spp_chunks
-    n = w * h * spp_c
-    tile = tile_rows * 128
-    if n % (n_dev * tile) != 0:
-        raise ValueError(
-            f"rays per chunk ({n}) must split into whole {tile}-ray tiles "
-            f"per device over {n_dev} devices; adjust width/height/spp")
-    local_n = n // n_dev
-    local_tiles = local_n // tile
-
-    _check_fused_cfg(cfg)
-    adjoint = _resolve_adjoint(cfg, adjoint, n_devices=n_dev,
-                               tile_rows=tile_rows)
-    fm = _resolve_fastmath(fastmath, rng)
-    n_chunks = cfg.spp_chunks if rng == "internal" else 1
-    tracer = make_fused_tracer(scene, cam, cfg, tile_rows=tile_rows,
-                               rng=rng, interpret=interpret,
-                               n_rays=local_n, fastmath=fm,
-                               n_chunks=n_chunks)
-    if adjoint == "stored":
-        collect = make_fused_collect_tracer(scene, cam, cfg,
-                                            tile_rows=tile_rows, rng=rng,
-                                            interpret=interpret,
-                                            n_rays=local_n, fastmath=fm,
-                                            n_chunks=n_chunks)
-        sweep = make_fused_sweep_adjoint(scene, cfg, tile_rows=tile_rows,
-                                         interpret=interpret,
-                                         n_chunks=n_chunks)
-    else:
-        adj = make_fused_adjoint(scene, cam, cfg, tile_rows=tile_rows,
-                                 rng=rng, interpret=interpret,
-                                 n_rays=local_n, fastmath=fm,
-                                 n_chunks=n_chunks)
-
-    def _dev_index():
-        idx = 0
-        for name in names:
-            idx = idx * jax.lax.axis_size(name) + jax.lax.axis_index(name)
-        return idx
-
-    ray_p = P(names)
-    v3_ray = V3(ray_p, ray_p, ray_p)
-
-    if rng == "tape":
-        if cfg.spp_chunks != 1:
-            raise ValueError("tape-mode sharded renderer requires "
-                             "spp_chunks == 1")
-        if cfg.unbiased:
-            raise ValueError("tape-mode sharded renderer is biased-only")
-        cam_u_p = P(None, names)       # f[2, N] sharded on rays
-        tape_p = P(None, None, names)  # f[D, 3, N] sharded on rays
-        res_p = P(None, names)         # residuals f/i32[D, N] on rays
-        sharded_collect_t = sharded_sweep = sharded_adj_t = None
-
-        def _shard_trace_t(alb, emi, cam_u, u):
-            return tracer(alb, emi, cam_u, u,
-                          tile_base=_dev_index() * local_tiles)
-
-        sharded_trace_t = shard_map(_shard_trace_t, mesh=mesh,
-                                    in_specs=(P(), P(), cam_u_p, tape_p),
-                                    out_specs=v3_ray, check_vma=False)
-        if adjoint == "stored":
-            def _shard_collect_t(alb, emi, cam_u, u):
-                return collect(alb, emi, cam_u, u,
-                               tile_base=_dev_index() * local_tiles)
-
-            def _shard_sweep(alb, emi, rsc, rbest, g):
-                da, de = sweep(alb, emi, rsc, rbest, g)
-                return jax.lax.psum((da, de), names)
-
-            sharded_collect_t = shard_map(
-                _shard_collect_t, mesh=mesh,
-                in_specs=(P(), P(), cam_u_p, tape_p),
-                out_specs=(v3_ray, res_p, res_p), check_vma=False)
-            sharded_sweep = shard_map(
-                _shard_sweep, mesh=mesh,
-                in_specs=(P(), P(), res_p, res_p, v3_ray),
-                out_specs=(P(), P()), check_vma=False)
-        else:
-            def _shard_adj_t(alb, emi, cam_u, u, g):
-                da, de = adj(alb, emi, cam_u, u, g,
-                             tile_base=_dev_index() * local_tiles)
-                return jax.lax.psum((da, de), names)
-
-            sharded_adj_t = shard_map(_shard_adj_t, mesh=mesh,
-                                      in_specs=(P(), P(), cam_u_p, tape_p,
-                                                v3_ray),
-                                      out_specs=(P(), P()),
-                                      check_vma=False)
-        return _build_tape_renderer(scene, cfg, adjoint, sharded_trace_t,
-                                    sharded_collect_t, sharded_sweep,
-                                    sharded_adj_t)
-
-    def _shard_trace(alb, emi, seeds):
-        L = tracer(alb, emi, seeds, tile_base=_dev_index() * local_tiles)
-        return L
-
-    # check_vma=False: pallas_call outputs carry no varying-mesh-axis
-    # annotation, so shard_map's vma checker cannot see through them.
-    sharded_trace = shard_map(_shard_trace, mesh=mesh,
-                              in_specs=(P(), P(), P()),
-                              out_specs=v3_ray, check_vma=False)
-    sharded_collect = sharded_sweep = sharded_adj = None
-    if adjoint == "stored":
-        # Chunk-grid residuals carry a leading chunk dim; rays stay the
-        # sharded (minor) axis either way.
-        res_p = P(None, names) if n_chunks == 1 else P(None, None, names)
-
-        def _shard_collect(alb, emi, seeds):
-            return collect(alb, emi, seeds,
-                           tile_base=_dev_index() * local_tiles)
-
-        def _shard_sweep(alb, emi, rsc, rbest, g):
-            da, de = sweep(alb, emi, rsc, rbest, g)
-            return jax.lax.psum((da, de), names)
-
-        sharded_collect = shard_map(_shard_collect, mesh=mesh,
-                                    in_specs=(P(), P(), P()),
-                                    out_specs=(v3_ray, res_p, res_p),
-                                    check_vma=False)
-        sharded_sweep = shard_map(_shard_sweep, mesh=mesh,
-                                  in_specs=(P(), P(), res_p, res_p,
-                                            v3_ray),
-                                  out_specs=(P(), P()), check_vma=False)
-    else:
-        def _shard_adj(alb, emi, seeds, g):
-            da, de = adj(alb, emi, seeds, g,
-                         tile_base=_dev_index() * local_tiles)
-            return jax.lax.psum((da, de), names)
-
-        sharded_adj = shard_map(_shard_adj, mesh=mesh,
-                                in_specs=(P(), P(), P(), v3_ray),
-                                out_specs=(P(), P()), check_vma=False)
-
-    return _build_internal_renderer(scene, cfg, adjoint, sharded_trace,
-                                    sharded_collect, sharded_sweep,
-                                    sharded_adj, chunked=True)
-
-
-def make_regen_image_renderer(scene: Scene, cam: Camera, cfg: RenderConfig,
-                              tile_rows: int | None = None,
-                              interpret: bool | None = None,
-                              adjoint: str = "auto",
-                              fastmath: bool | str = "auto",
-                              chunked: bool = True):
-    """Build `render(params, seeds: i32[2]) -> image f[H,W,3]` on the
-    path-REGENERATION kernels (ops/regen.py): lanes are pixels, each
-    rendering its spp samples sequentially and refilling dead lanes with
-    the next sample — ~E[path length]/max_depth of the lockstep kernels'
-    trip count. Internal (hash-keyed) RNG only; biased adjoint only (the
-    stateless keyed draws make the stored sweep replay exact).
-
-    adjoint: "stored" saves the per-trip (sc, meta) residuals from the
-    VJP forward (8 B/lane-trip, like the lockstep stored adjoint);
-    "retrace" re-runs the collect kernel inside the backward instead
-    (one chunk's residuals live at a time); "auto" picks by the
-    footprint budget as in make_fused_image_renderer.
-
-    chunked=True (default) folds the spp-chunk loop into the kernel
-    grid: one forward dispatch and one collect + one sweep dispatch for
-    the whole image, bit-equal to the host loop (ops/regen.py n_chunks).
-    chunked=False keeps the legacy cfg.spp_chunks sequential launches.
-
-    tile_rows=None (default) picks the largest of (32, 16, 8) whose
-    residual blocks fit the VMEM budget.
-    """
-    tile_rows = _resolve_regen_tile_rows(cfg, tile_rows)
-    adjoint = _check_regen_cfg(cfg, adjoint, tile_rows)
-    fm = _resolve_fastmath(fastmath, "internal")
-    n_chunks = cfg.spp_chunks if chunked else 1
-    # retrace exists to bound HBM to one chunk's residuals — its
-    # collect/sweep stay per-chunk launches (see _build_regen_renderer).
-    bwd_chunks = n_chunks if adjoint == "stored" else 1
-    from drt_tpu.ops.regen import make_regen_sweep_adjoint, make_regen_tracer
-    tracer = make_regen_tracer(scene, cam, cfg, tile_rows=tile_rows,
-                               interpret=interpret, fastmath=fm,
-                               n_chunks=n_chunks)
-    collect = make_regen_tracer(scene, cam, cfg, tile_rows=tile_rows,
-                                interpret=interpret, fastmath=fm,
-                                collect=True, n_chunks=bwd_chunks)
-    sweep = make_regen_sweep_adjoint(scene, cfg, tile_rows=tile_rows,
-                                     interpret=interpret,
-                                     n_chunks=bwd_chunks)
-
-    def trace_fn(alb, emi, seeds, sb):
-        L, _ = tracer(alb, emi, seeds, sample_base=sb)
-        return L
-
-    def collect_fn(alb, emi, seeds, sb):
-        return collect(alb, emi, seeds, sample_base=sb)
-
-    def sweep_fn(alb, emi, rsc, rmeta, trips, g):
-        return sweep(alb, emi, rsc, rmeta, trips, g)
-
-    return _build_regen_renderer(scene, cfg, adjoint, trace_fn,
-                                 collect_fn, sweep_fn,
-                                 n_chunks=n_chunks,
-                                 bwd_chunks=bwd_chunks)
-
-
-# VMEM the regen adjoint kernels may spend on t_cap-deep residual
-# blocks. The sweep kernel is the worst case: 2 inputs (rsc, rmeta) + 3
-# scratch (reconstructed P) blocks of (t_cap, tile_rows, 128) f32 live
-# at once (ops/regen.py make_regen_sweep_adjoint); the collect forward
-# holds 2 plus a small while-loop carry. Budgeted below the ~16 MiB
-# per-core VMEM with headroom for the carry/outputs/double-buffering.
-_REGEN_VMEM_BUDGET = 12 << 20
-_REGEN_SWEEP_BLOCKS = 5
-
-
-def _regen_vmem_bytes(cfg: RenderConfig, tile_rows: int) -> int:
-    t_cap = (cfg.spp // cfg.spp_chunks) * cfg.max_depth
-    return _REGEN_SWEEP_BLOCKS * t_cap * tile_rows * 128 * 4
-
-
-def _resolve_regen_tile_rows(cfg: RenderConfig,
-                             tile_rows: int | None) -> int:
-    """None = auto: the largest of (32, 16, 8) whose regen residual
-    blocks fit the VMEM budget (32 is the throughput default; 8 is the
-    f32 tiling minimum — returned even when over budget so
-    _check_regen_cfg raises with the spp_chunks hint)."""
-    if tile_rows is not None:
-        return tile_rows
-    for tr in (32, 16):
-        if _regen_vmem_bytes(cfg, tr) <= _REGEN_VMEM_BUDGET:
-            return tr
-    return 8
-
-
-def _check_regen_cfg(cfg: RenderConfig, adjoint: str,
-                     tile_rows: int, n_devices: int = 1) -> str:
-    _check_fused_cfg(cfg)
-    if cfg.unbiased:
-        raise ValueError(
-            "the regen renderer is biased-only (stored/replayed keyed "
-            "streams); use the lockstep pallas or xla backend for "
-            "unbiased gradients (integrate.hpp:11-24)")
-    need = _regen_vmem_bytes(cfg, tile_rows)
-    if need > _REGEN_VMEM_BUDGET:
-        # Unlike the stored-vs-retrace HBM budget, VMEM cannot be saved
-        # by retracing: the retrace backward reruns the SAME collect +
-        # sweep kernels per chunk. spp_chunks is the main knob (it
-        # divides t_cap = spp/spp_chunks * max_depth); tile_rows also
-        # scales the footprint (default 32 for throughput; 8 is the f32
-        # tiling minimum and cuts the footprint 4x).
-        fitting = [c for c in range(cfg.spp_chunks, cfg.spp + 1)
-                   if cfg.spp % c == 0
-                   and _regen_vmem_bytes(
-                       dataclasses.replace(cfg, spp_chunks=c),
-                       tile_rows) <= _REGEN_VMEM_BUDGET]
-        hint = (f"; the smallest fitting spp_chunks is {fitting[0]}"
-                if fitting else "; no spp_chunks fits — lower max_depth")
-        raise ValueError(
-            f"regen adjoint residuals need {need / 2**20:.1f} MiB of "
-            f"VMEM per tile ({_REGEN_SWEEP_BLOCKS} blocks of "
-            f"(spp/spp_chunks*max_depth, {tile_rows}, 128) f32) > "
-            f"budget {_REGEN_VMEM_BUDGET / 2**20:.0f} MiB — a Mosaic "
-            f"compile error at launch. Raise spp_chunks{hint}, pass "
-            "tile_rows=8, or use the lockstep pallas backend")
-    return _resolve_adjoint(cfg, adjoint, n_devices=n_devices,
-                            tile_rows=tile_rows)
-
-
-def _build_regen_renderer(scene: Scene, cfg: RenderConfig, adjoint: str,
-                          trace_fn, collect_fn, sweep_fn,
-                          n_chunks: int = 1, bwd_chunks: int | None = None):
-    """Regen image-renderer custom VJP, shared by the single-device and
-    sharded factories. Callable contracts (possibly shard_map-wrapped):
-      trace_fn(alb, emi, seeds, sample_base) -> V3[npix]
-      collect_fn(...) -> (V3[npix], rsc, rmeta, trips)
-      sweep_fn(alb, emi, rsc, rmeta, trips, g: V3[npix]) -> (da, de)
-
-    n_chunks == cfg.spp_chunks means the forward tracer was built
-    chunk-grid (the spp-chunk loop rides the kernel grid; ops/regen.py):
-    ONE trace dispatch covers every chunk, and the callable's
-    sample_base stays 0 (the kernel derives per-chunk offsets).
-    n_chunks == 1 is the legacy host loop over cfg.spp_chunks launches.
-
-    bwd_chunks (default n_chunks) is the same switch for the
-    collect/sweep pair. The factories keep it at 1 when the resolved
-    adjoint is 'retrace': a chunk-grid collect materializes EVERY
-    chunk's residuals at once, which is exactly the HBM footprint
-    retrace exists to avoid — the retrace backward must stay a
-    per-chunk host loop.
-    """
-    w, h = cfg.width, cfg.height
-    npix = w * h
-    spp_c = cfg.spp // cfg.spp_chunks
-    bwd_chunks = n_chunks if bwd_chunks is None else bwd_chunks
-    one_shot = n_chunks != 1 or cfg.spp_chunks == 1
-    bwd_one_shot = bwd_chunks != 1 or cfg.spp_chunks == 1
-    assert n_chunks in (1, cfg.spp_chunks)
-    assert bwd_chunks in (1, cfg.spp_chunks)
-
-    def _img(L):
-        return jnp.stack([L.x, L.y, L.z], -1).reshape(h, w, 3)
-
-    @jax.custom_vjp
-    def render(params: Params, seeds: jnp.ndarray) -> jnp.ndarray:
-        alb = albedo_table(scene, params)
-        emi = emission_table(scene, params)
-        if one_shot:
-            return _img(trace_fn(alb, emi, seeds, 0)) / cfg.spp
-        img = jnp.zeros((h, w, 3), alb.dtype)
-        for c in range(cfg.spp_chunks):
-            img = img + _img(trace_fn(alb, emi, seeds, c * spp_c))
-        return img / cfg.spp
-
-    def fwd(params, seeds):
-        if adjoint != "stored":
-            return render(params, seeds), (params, seeds, None)
-        alb = albedo_table(scene, params)
-        emi = emission_table(scene, params)
-        if bwd_one_shot:
-            L, rsc, rmeta, trips = collect_fn(alb, emi, seeds, 0)
-            return (_img(L) / cfg.spp,
-                    (params, seeds, ((rsc, rmeta, trips),)))
-        img = jnp.zeros((h, w, 3), alb.dtype)
-        residuals = []
-        for c in range(cfg.spp_chunks):
-            L, rsc, rmeta, trips = collect_fn(alb, emi, seeds, c * spp_c)
-            residuals.append((rsc, rmeta, trips))
-            img = img + _img(L)
-        return img / cfg.spp, (params, seeds, tuple(residuals))
-
-    def bwd(res, g):
-        params, seeds, residuals = res
-        alb = albedo_table(scene, params)
-        emi = emission_table(scene, params)
-        dtype = alb.dtype
-        # Lanes are pixels: one cotangent per pixel, constant across its
-        # samples (image = sum over all spp of per-sample radiance / spp).
-        g_pix = (g / cfg.spp).astype(dtype).reshape(npix, 3)
-        g_lane = V3(g_pix[:, 0], g_pix[:, 1], g_pix[:, 2])
-        k = params.albedo.shape[0]
-        l = params.emission.shape[0]
-        da = jnp.zeros((k, 3), dtype)
-        de = jnp.zeros((l, 3), dtype)
-        n_calls = 1 if bwd_one_shot else cfg.spp_chunks
-        for c in range(n_calls):
-            if residuals is not None:
-                rsc, rmeta, trips = residuals[c]
-            else:
-                _, rsc, rmeta, trips = collect_fn(alb, emi, seeds,
-                                                  c * spp_c)
-            da_c, de_c = sweep_fn(alb, emi, rsc, rmeta, trips, g_lane)
-            da = da + da_c[:k]
-            de = de + de_c[:l]
-        dparams = Params(albedo=da.astype(params.albedo.dtype),
-                         emission=de.astype(params.emission.dtype))
-        return (dparams, None)
-
-    render.defvjp(fwd, bwd)
-    return render
-
-
-def make_sharded_regen_image_renderer(scene: Scene, cam: Camera,
-                                      cfg: RenderConfig, mesh,
-                                      tile_rows: int | None = None,
-                                      interpret: bool | None = None,
-                                      adjoint: str = "auto",
-                                      fastmath: bool | str = "auto",
-                                      chunked: bool = True):
-    """Sharded regen path: the regeneration kernels run per-device under
-    `shard_map`, each shard owning a contiguous slice of the PIXEL index
-    space via `tile_base` (lanes are pixels, so the shard axis is pixels,
-    not rays); parameter-gradient partials are psum'd over the mesh as in
-    make_sharded_fused_image_renderer.
-    """
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    tile_rows = _resolve_regen_tile_rows(cfg, tile_rows)
-    names = tuple(mesh.axis_names)
-    n_dev = int(np.prod(mesh.devices.shape))
-    npix = cfg.width * cfg.height
-    tile = tile_rows * 128
-    if npix % (n_dev * tile) != 0:
-        raise ValueError(
-            f"pixels ({npix}) must split into whole {tile}-pixel tiles "
-            f"per device over {n_dev} devices; adjust width/height or "
-            "tile_rows")
-    local_n = npix // n_dev
-    local_tiles = local_n // tile
-
-    adjoint = _check_regen_cfg(cfg, adjoint, tile_rows, n_devices=n_dev)
-    fm = _resolve_fastmath(fastmath, "internal")
-    n_chunks = cfg.spp_chunks if chunked else 1
-    bwd_chunks = n_chunks if adjoint == "stored" else 1
-    from drt_tpu.ops.regen import make_regen_sweep_adjoint, make_regen_tracer
-    tracer = make_regen_tracer(scene, cam, cfg, tile_rows=tile_rows,
-                               interpret=interpret, fastmath=fm,
-                               n_pix=local_n, n_chunks=n_chunks)
-    collect = make_regen_tracer(scene, cam, cfg, tile_rows=tile_rows,
-                                interpret=interpret, fastmath=fm,
-                                n_pix=local_n, collect=True,
-                                n_chunks=bwd_chunks)
-    sweep = make_regen_sweep_adjoint(scene, cfg, tile_rows=tile_rows,
-                                     interpret=interpret, n_pix=local_n,
-                                     n_chunks=bwd_chunks)
-
-    def _dev_index():
-        idx = 0
-        for name in names:
-            idx = idx * jax.lax.axis_size(name) + jax.lax.axis_index(name)
-        return idx
-
-    pix_p = P(names)
-    v3_pix = V3(pix_p, pix_p, pix_p)
-    # Chunk-grid residuals are (n_chunks, t_cap, pix) and trips are
-    # (tiles, n_chunks): the pixel/tile axis moves, the chunk axis is
-    # unsharded.
-    res_p = P(None, names) if bwd_chunks == 1 else P(None, None, names)
-    trips_p = P(names) if bwd_chunks == 1 else P(names, None)
-
-    def _shard_trace(alb, emi, seeds, sb):
-        L, _ = tracer(alb, emi, seeds,
-                      tile_base=_dev_index() * local_tiles,
-                      sample_base=sb)
-        return L
-
-    def _shard_collect(alb, emi, seeds, sb):
-        return collect(alb, emi, seeds,
-                       tile_base=_dev_index() * local_tiles,
-                       sample_base=sb)
-
-    def _shard_sweep(alb, emi, rsc, rmeta, trips, g):
-        da, de = sweep(alb, emi, rsc, rmeta, trips, g)
-        return jax.lax.psum((da, de), names)
-
-    # check_vma=False: pallas_call outputs carry no varying-mesh-axis
-    # annotation (see make_sharded_fused_image_renderer).
-    trace_fn = shard_map(_shard_trace, mesh=mesh,
-                         in_specs=(P(), P(), P(), P()),
-                         out_specs=v3_pix, check_vma=False)
-    collect_fn = shard_map(_shard_collect, mesh=mesh,
-                           in_specs=(P(), P(), P(), P()),
-                           out_specs=(v3_pix, res_p, res_p, trips_p),
-                           check_vma=False)
-    sweep_fn = shard_map(_shard_sweep, mesh=mesh,
-                         in_specs=(P(), P(), res_p, res_p, trips_p,
-                                   v3_pix),
-                         out_specs=(P(), P()), check_vma=False)
-    return _build_regen_renderer(scene, cfg, adjoint, trace_fn,
-                                 collect_fn, sweep_fn,
-                                 n_chunks=n_chunks,
-                                 bwd_chunks=bwd_chunks)
-
-
-def make_dyn_regen_image_renderer(scene: Scene, cam: Camera,
-                                  cfg: RenderConfig,
-                                  tile_rows: int | None = None,
-                                  interpret: bool | None = None,
-                                  adjoint: str = "auto",
-                                  unroll_shapes: int = 16,
-                                  fastmath: bool | str = "auto",
-                                  chunked: bool = True):
-    """Regeneration renderer over a MEMORY-RESIDENT scene
-    (ops/dynregen.py): make_regen_image_renderer's contract for scenes
-    past the baked kernels' unroll budget (triangle meshes)."""
-    from drt_tpu.ops.dynkernel import DynScene
-    from drt_tpu.ops.dynregen import (make_dyn_regen_sweep_adjoint,
-                                      make_dyn_regen_tracer)
-
-    tile_rows = _resolve_regen_tile_rows(cfg, tile_rows)
-    adjoint = _check_regen_cfg(cfg, adjoint, tile_rows)
-    fm = _resolve_fastmath(fastmath, "internal")
-    n_chunks = cfg.spp_chunks if chunked else 1
-    bwd_chunks = n_chunks if adjoint == "stored" else 1
-    ds = DynScene.of(scene)
-    scene = ds.scene
-    scn = ds.operands
-    kw = dict(tile_rows=tile_rows, interpret=interpret, fastmath=fm,
-              unroll_shapes=unroll_shapes)
-    tracer = make_dyn_regen_tracer(ds, cam, cfg, n_chunks=n_chunks, **kw)
-    collect = make_dyn_regen_tracer(ds, cam, cfg, collect=True,
-                                    n_chunks=bwd_chunks, **kw)
-    sweep = make_dyn_regen_sweep_adjoint(ds, cfg, tile_rows=tile_rows,
-                                         interpret=interpret,
-                                         n_chunks=bwd_chunks)
-
-    def trace_fn(alb, emi, seeds, sb):
-        L, _ = tracer(alb, emi, scn, seeds, sample_base=sb)
-        return L
-
-    def collect_fn(alb, emi, seeds, sb):
-        return collect(alb, emi, scn, seeds, sample_base=sb)
-
-    def sweep_fn(alb, emi, rsc, rrow, trips, g):
-        return sweep(alb, emi, rsc, rrow, trips, g)
-
-    return _build_regen_renderer(scene, cfg, adjoint, trace_fn,
-                                 collect_fn, sweep_fn,
-                                 n_chunks=n_chunks,
-                                 bwd_chunks=bwd_chunks)
-
-
-def make_sharded_dyn_regen_image_renderer(scene: Scene, cam: Camera,
-                                          cfg: RenderConfig, mesh,
-                                          tile_rows: int | None = None,
-                                          interpret: bool | None = None,
-                                          adjoint: str = "auto",
-                                          unroll_shapes: int = 16,
-                                          fastmath: bool | str = "auto",
-                                          chunked: bool = True):
-    """Sharded dyn-regen path: pixels sharded by tile_base, scene
-    operands replicated, grad partials psum'd (contract of
-    make_sharded_regen_image_renderer over the dyn kernels)."""
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    from drt_tpu.ops.dynkernel import DynScene
-    from drt_tpu.ops.dynregen import (make_dyn_regen_sweep_adjoint,
-                                      make_dyn_regen_tracer)
-
-    tile_rows = _resolve_regen_tile_rows(cfg, tile_rows)
-    names = tuple(mesh.axis_names)
-    n_dev = int(np.prod(mesh.devices.shape))
-    npix = cfg.width * cfg.height
-    tile = tile_rows * 128
-    if npix % (n_dev * tile) != 0:
-        raise ValueError(
-            f"pixels ({npix}) must split into whole {tile}-pixel tiles "
-            f"per device over {n_dev} devices; adjust width/height or "
-            "tile_rows")
-    local_n = npix // n_dev
-    local_tiles = local_n // tile
-
-    adjoint = _check_regen_cfg(cfg, adjoint, tile_rows, n_devices=n_dev)
-    fm = _resolve_fastmath(fastmath, "internal")
-    n_chunks = cfg.spp_chunks if chunked else 1
-    bwd_chunks = n_chunks if adjoint == "stored" else 1
-    ds = DynScene.of(scene)
-    scene = ds.scene
-    scn = ds.operands
-    kw = dict(tile_rows=tile_rows, interpret=interpret, fastmath=fm,
-              unroll_shapes=unroll_shapes, n_pix=local_n)
-    tracer = make_dyn_regen_tracer(ds, cam, cfg, n_chunks=n_chunks, **kw)
-    collect = make_dyn_regen_tracer(ds, cam, cfg, collect=True,
-                                    n_chunks=bwd_chunks, **kw)
-    sweep = make_dyn_regen_sweep_adjoint(ds, cfg, tile_rows=tile_rows,
-                                         interpret=interpret,
-                                         n_pix=local_n,
-                                         n_chunks=bwd_chunks)
-
-    def _dev_index():
-        idx = 0
-        for name in names:
-            idx = idx * jax.lax.axis_size(name) + jax.lax.axis_index(name)
-        return idx
-
-    pix_p = P(names)
-    v3_pix = V3(pix_p, pix_p, pix_p)
-    res_p = P(None, names) if bwd_chunks == 1 else P(None, None, names)
-    trips_p = P(names) if bwd_chunks == 1 else P(names, None)
-
-    def _shard_trace(alb, emi, seeds, sb):
-        L, _ = tracer(alb, emi, scn, seeds,
-                      tile_base=_dev_index() * local_tiles,
-                      sample_base=sb)
-        return L
-
-    def _shard_collect(alb, emi, seeds, sb):
-        return collect(alb, emi, scn, seeds,
-                       tile_base=_dev_index() * local_tiles,
-                       sample_base=sb)
-
-    def _shard_sweep(alb, emi, rsc, rrow, trips, g):
-        da, de = sweep(alb, emi, rsc, rrow, trips, g)
-        return jax.lax.psum((da, de), names)
-
-    trace_fn = shard_map(_shard_trace, mesh=mesh,
-                         in_specs=(P(), P(), P(), P()),
-                         out_specs=v3_pix, check_vma=False)
-    collect_fn = shard_map(_shard_collect, mesh=mesh,
-                           in_specs=(P(), P(), P(), P()),
-                           out_specs=(v3_pix, res_p, res_p, trips_p),
-                           check_vma=False)
-    sweep_fn = shard_map(_shard_sweep, mesh=mesh,
-                         in_specs=(P(), P(), res_p, res_p, trips_p,
-                                   v3_pix),
-                         out_specs=(P(), P()), check_vma=False)
-    return _build_regen_renderer(scene, cfg, adjoint, trace_fn,
-                                 collect_fn, sweep_fn,
-                                 n_chunks=n_chunks,
-                                 bwd_chunks=bwd_chunks)

@@ -7,7 +7,7 @@ validated against a dual-number (forward-mode) render
 cbox-grad-gt.png; the dual scalar is include/drt/dual.hpp:10-72, used at
 src/render.cpp:22-23).
 
-TPU-native equivalents, both exposed as library facilities:
+Equivalents here, both exposed as library facilities:
 
 - `grad_image`: the radiative-backprop gradient image. One retrace per
   spp chunk; the reverse suffix sweep keeps the PER-RAY gradient
@@ -23,7 +23,7 @@ TPU-native equivalents, both exposed as library facilities:
 
 In biased mode (key replay) the two images agree to float rounding by
 the AD identity; `python -m drt_tpu.cli grad-image` renders and saves
-both (the TPU re-creation of the reference's headline figure).
+both (the re-creation of the reference's headline figure).
 """
 
 from __future__ import annotations

@@ -31,7 +31,7 @@ coincide exactly, which is what the golden-parity suite pins.
 
 The renderer's in-config knobs (`RenderConfig.unbiased`,
 `bsdf_samples`, `adjoint_samples`) are this operator's semantics fused
-into the wavefront/megakernel paths; use this module when integrating
+into the wavefront and path-kernel paths; use this module when integrating
 something else (test: tests/test_integrate.py).
 """
 

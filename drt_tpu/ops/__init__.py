@@ -1,3 +1,3 @@
-from drt_tpu.ops import vecmath, intersect, bxdf, megakernel
+from drt_tpu.ops import vecmath, intersect, bxdf, pathkernel
 
-__all__ = ["vecmath", "intersect", "bxdf", "megakernel"]
+__all__ = ["vecmath", "intersect", "bxdf", "pathkernel"]

@@ -3,8 +3,7 @@
 Pure-function equivalents of the reference's fixed-size vector helpers
 (reference: include/drt/vector.hpp:573-606). All functions broadcast over
 leading batch dimensions; the trailing axis is the 3-component axis (SoA
-batches of rays live as `f32[N, 3]`, which XLA lays out vector-register
-friendly on TPU).
+batches of rays live as `f32[N, 3]`).
 """
 
 from __future__ import annotations
@@ -45,13 +44,9 @@ def reflect(v: jnp.ndarray, n: jnp.ndarray) -> jnp.ndarray:
 
 # ---------------------------------------------------------------------------
 # Scalarized SoA vec3: a pytree of three f[N] arrays — the wavefront's hot
-# representation. On TPU the minor dimension maps to the 128-wide vector
-# lanes; rank-1 [N] component arrays guarantee full lane occupancy and
-# padding-free layouts everywhere (scan carries, stacked residuals,
-# gathers). Packed alternatives measurably lose: [N, 3] state made the
-# fwd+bwd Cornell render need 20.7 GB HBM, and even [3, N] arrays get
-# assigned minor-3 layouts by XLA inside while-loops (3 -> 128 lane
-# padding, 41x observed on a stacked [D, 3, N] residual).
+# representation. Rank-1 [N] component arrays keep the huge ray axis
+# minor everywhere (scan carries, stacked residuals, gathers), so no
+# layout pads a size-3 axis.
 # ---------------------------------------------------------------------------
 
 from typing import NamedTuple

@@ -2,12 +2,12 @@
 
 The reference is one OS thread walking pixels in a nested loop
 (reference: src/render.cpp:72-86) with no parallelism of any kind
-(SURVEY.md §2 "Parallelism & communication inventory"). The TPU-native
-scaling axes map as:
+(SURVEY.md §2 "Parallelism & communication inventory"). The scaling
+axes map as:
 
   pixel tiles  -> mesh axis "tiles"  (data parallelism over rays)
   samples/px   -> mesh axis "spp"    (sample parallelism)
-  scene+params -> replicated per chip (they are tiny)
+  scene+params -> replicated per device (they are tiny)
   grad reduce  -> psum inserted by the SPMD partitioner where the
                   adjoint's segment_sums cross the mesh
                   (the analogue of the reference's single-heap
@@ -15,7 +15,7 @@ scaling axes map as:
 
 The flat ray batch dimension N = H*W*spp_chunk is sharded over BOTH axes
 (`P(("tiles", "spp"))`); XLA partitions every per-ray op in the wavefront
-and all-reduces the parameter-gradient partial sums over ICI.
+and all-reduces the parameter-gradient partial sums across devices.
 """
 
 from __future__ import annotations

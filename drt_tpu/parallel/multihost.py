@@ -1,10 +1,10 @@
 """Multi-host runtime: process groups, failure detection, elastic tiles.
 
 The reference has no distributed anything (SURVEY.md §2/§5 — one OS
-thread, src/render.cpp:72-86). The TPU-native equivalents provided here:
+thread, src/render.cpp:72-86). The equivalents provided here:
 
 - `initialize`: `jax.distributed.initialize` wrapper for multi-host
-  process groups (ICI within a slice, DCN across hosts).
+  process groups.
 - `TileScheduler`: elastic, idempotent tile-based rendering. The image is
   split into independent pixel-tile jobs; each job is a pure function of
   (params, tile, seed), so a failed/preempted host's tiles can simply be
@@ -34,8 +34,8 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Start the multi-host runtime (no-op in single-process runs).
 
-    On TPU pods the three arguments are auto-detected from the
-    environment; pass them explicitly for CPU/GPU clusters.
+    Pass the three arguments explicitly (coordinator `host:port`,
+    process count, this process's index); nothing detects them.
     """
     if num_processes is not None and num_processes <= 1:
         return

@@ -20,211 +20,114 @@ from drt_tpu.renderer import render_image, trace_rays
 from drt_tpu.scene import Params, Scene
 
 
-# Scene-size ceiling of the memory-resident (dyn) kernels: the shape
-# arrays live in SMEM (~80 B/shape across geo + aux + attribute rows).
-MAX_DYN_SHAPES = 2048
+# Backend names make_renderer accepts besides "auto".
+XLA = "xla"
+KERNEL = "pathkernel"
 
-# The differentiable XLA wavefront reproducibly dies with a raw
-# "UNAVAILABLE: TPU device error" on big scene x size products.
-# Bisected on-chip (tools/repro_xla_bigscene.py, logs/r4_repro_xla_*):
-# mesh-87 fwd+bwd is GREEN through 640x480x128spp = 3.9e7 TOTAL rays
-# (3.4e9 ray-shapes) and dies at 7.9e7 total rays (6.8e9) — both at
-# spp_chunks=4 AND at spp_chunks=16 with the same rays/chunk as a
-# green rung, so the bound is on the WHOLE-CALL rays x shapes product
-# (the backward's saved wavefront residuals scale with total rays;
-# chunking doesn't shrink what autodiff keeps live). Gate at the last
-# measured green product so users get a config error naming the
-# production alternative, not a runtime infra crash. Forward-only is
-# unaffected (completed at headline size).
-XLA_FWDBWD_MAX_RAY_SHAPES = 3.5e9
+# Share of the device's memory limit that the path kernel's stored
+# residuals may take; the rest is left to the image, the sweep and XLA.
+RESIDUAL_MEMORY_FRACTION = 0.25
 
 
-def _check_xla_diff_size(scene: Scene, cfg: RenderConfig) -> None:
-    if jax.default_backend() != "tpu":
-        return
-    total_rays = cfg.width * cfg.height * cfg.spp
-    product = total_rays * scene.num_shapes
-    if product > XLA_FWDBWD_MAX_RAY_SHAPES:
-        raise ValueError(
-            f"differentiable XLA wavefront at {total_rays} rays"
-            f" x {scene.num_shapes} shapes (product {product:.2g}) is in "
-            f"the range where the TPU runtime has been observed to fail "
-            f"with a raw device error (bisected: green <= 3.4e9, dead at "
-            f"6.8e9 regardless of spp_chunks; guard at "
-            f"{XLA_FWDBWD_MAX_RAY_SHAPES:.0g}). Use the memory-resident "
-            "kernels (backend='pallas-dyn', the production path for "
-            "scenes this size) or lower spp/resolution")
+def _platform() -> str:
+    return jax.devices()[0].platform
+
+
+def _bytes_limit() -> int | None:
+    stats = jax.devices()[0].memory_stats()
+    return None if not stats else stats.get("bytes_limit")
+
+
+def kernel_misfit(scene: Scene, cfg: RenderConfig,
+                  mesh: Mesh | None) -> str | None:
+    """Why the path kernel cannot render this at all, or None. It needs
+    a single device, an f32 scene small enough to bake
+    (pathkernel.MAX_SHAPES) at a depth it unrolls (pathkernel.MAX_DEPTH),
+    the biased 1-sample-per-vertex estimator, and residuals within i32
+    indexing."""
+    from drt_tpu.ops import pathkernel
+
+    if mesh is not None:
+        return "it renders on one device, without a mesh"
+    if cfg.unbiased or cfg.bsdf_samples != 1:
+        return ("it renders the biased 1-sample-per-vertex estimator "
+                "(unbiased=False, bsdf_samples=1)")
+    if scene.shape_geo.dtype != jnp.float32:
+        return f"it renders f32 scenes, not {scene.shape_geo.dtype}"
+    if scene.num_shapes > pathkernel.MAX_SHAPES:
+        return (f"it bakes at most {pathkernel.MAX_SHAPES} shapes, not "
+                f"{scene.num_shapes}")
+    if cfg.max_depth > pathkernel.MAX_DEPTH:
+        return (f"it unrolls at most {pathkernel.MAX_DEPTH} bounces, not "
+                f"{cfg.max_depth}")
+    if pathkernel.residual_bytes(cfg) // 4 >= 2 ** 31:
+        return "its residuals would overflow i32 indexing"
+    return None
+
+
+def kernel_fits(scene: Scene, cfg: RenderConfig,
+                mesh: Mesh | None) -> bool:
+    """Whether "auto" picks the path kernel: no `kernel_misfit`, and the
+    stored residuals within RESIDUAL_MEMORY_FRACTION of the device's
+    memory."""
+    from drt_tpu.ops import pathkernel
+
+    if kernel_misfit(scene, cfg, mesh) is not None:
+        return False
+    limit = _bytes_limit()
+    return (limit is None or pathkernel.residual_bytes(cfg)
+            <= RESIDUAL_MEMORY_FRACTION * limit)
 
 
 def resolve_backend(scene: Scene, cfg: RenderConfig, mesh: Mesh | None,
                     backend: str = "auto") -> str:
-    """Resolve "auto" to the concrete backend make_renderer will use.
+    """Resolve a backend name to the one make_renderer will use.
 
-    Fused Pallas paths are chosen on TPU when the config maps onto the
-    kernels: f32 scene (Mosaic has no f64), moderate unrolled depth
-    (kernel compile time grows with max_depth: ~8 s fwd / ~10 s adjoint
-    at depth 32 on v5e), and — on a mesh — whole tiles per device.
-    bsdf_samples > 1 takes the fused lane-splitting renderers
-    ("pallas-split" baked / "pallas-split-dyn" memory-resident) when
-    single-chip, else XLA.
-    Small scenes (<= 24 shapes) take the scene-BAKED megakernels
-    ("pallas"); larger scenes up to MAX_DYN_SHAPES take the
-    memory-resident kernels ("pallas-dyn", ops/dynkernel.py) whose
-    compile time is scene-size independent; beyond that, the XLA
-    wavefront with its lax.scan intersect.
+    "auto" picks the path kernel (drt_tpu/fused.py over
+    ops/pathkernel.py) on a GPU when `kernel_fits`, and the XLA
+    wavefront otherwise: CPU, f64 scenes, meshes of many shapes, deep
+    paths, unbiased gradients, bsdf_samples > 1, device meshes and
+    residuals over the memory budget.
     """
+    if backend not in ("auto", XLA, KERNEL):
+        raise ValueError(f"unknown backend {backend!r}; expected 'auto', "
+                         f"'{XLA}' or '{KERNEL}'")
     if backend != "auto":
         return backend
-    common_ok = (jax.default_backend() == "tpu"
-                 and cfg.max_depth <= 32
-                 and scene.shape_geo.dtype == jnp.float32)
-    # The baked megakernel unrolls the nearest-hit loop over baked
-    # shapes; compile time grows with n_shapes * max_depth — cap it.
-    baked_ok = common_ok and scene.num_shapes <= 24
-    dyn_ok = common_ok and scene.num_shapes <= MAX_DYN_SHAPES
-    if cfg.bsdf_samples > 1:
-        # Tree splitting: fused tape-mode kernels over M leaf lanes
-        # with prefix-shared uniforms; sharded when the lane count
-        # tiles over the mesh (spp_chunks == 1, tape-mode); else XLA.
-        if mesh is None and baked_ok:
-            return "pallas-split"
-        if mesh is None and dyn_ok:
-            return "pallas-split-dyn"
-        if mesh is not None and (baked_ok or dyn_ok):
-            from drt_tpu.renderer import lane_count
-
-            n_lanes = (cfg.width * cfg.height
-                       * (cfg.spp // cfg.spp_chunks) * lane_count(cfg))
-            n_dev = int(mesh.devices.size)
-            if cfg.spp_chunks == 1 and n_lanes % (n_dev * 32 * 128) == 0:
-                return ("pallas-split-sharded" if baked_ok
-                        else "pallas-split-dyn-sharded")
-        return "xla"
-    if mesh is None:
-        return "pallas" if baked_ok else ("pallas-dyn" if dyn_ok
-                                          else "xla")
-    n_dev = int(mesh.devices.size)
-    n_rays = cfg.width * cfg.height * (cfg.spp // cfg.spp_chunks)
-    tiles_ok = n_rays % (n_dev * 32 * 128) == 0
-    if baked_ok and tiles_ok:
-        return "pallas-sharded"
-    if dyn_ok and tiles_ok:
-        return "pallas-dyn-sharded"
-    return "xla"
+    if _platform() == "gpu" and kernel_fits(scene, cfg, mesh):
+        return KERNEL
+    return XLA
 
 
 def make_renderer(scene: Scene, cfg: RenderConfig, cam: Camera,
                   mesh: Mesh | None = None, differentiable: bool = True,
-                  backend: str = "auto"):
+                  backend: str = "auto", interpret: bool = False):
     """Build `render(params, key) -> image f[H,W,3]`, jitted.
 
     With a mesh, per-ray arrays are sharding-constrained over it and params
     are replicated; gradients of the returned function psum over the mesh.
 
-    backend: "xla" = the shardable wavefront scan; "pallas" = the fused
-    single-chip scene-BAKED megakernel pipeline (drt_tpu/fused.py);
-    "pallas-dyn" = the fused memory-resident-scene kernels
-    (ops/dynkernel.py — big scenes / triangle meshes); "pallas-sharded"
-    / "pallas-dyn-sharded" = the same kernels per shard under
-    shard_map; "auto" picks a fused path on TPU at moderate depth
-    (kernel compile time and VMEM residuals grow with max_depth) when
-    the ray count tiles over the mesh, else xla.
+    backend: "xla" = the shardable wavefront scan; "pathkernel" = the
+    single-device Pallas kernel (GPU only; `interpret=True` runs it in
+    the Pallas interpreter for tests; raises where `kernel_misfit`);
+    "auto" = resolve_backend.
     """
     backend = resolve_backend(scene, cfg, mesh, backend)
-    if (backend.startswith("pallas")
-            and not backend.startswith("pallas-split")
-            and cfg.bsdf_samples != 1):
-        raise ValueError("bsdf_samples > 1 (per-vertex splitting) runs "
-                         "on the xla backend or a 'pallas-split*' "
-                         "backend")
-    if backend in ("pallas-split-sharded", "pallas-split-dyn-sharded"):
-        if mesh is None:
-            raise ValueError(f"{backend} backend requires a mesh")
-        from drt_tpu.fused import (make_sharded_split_image_renderer,
-                                   seeds_from_key)
-        fused = make_sharded_split_image_renderer(
-            scene, cam, cfg, mesh,
-            dyn=(backend == "pallas-split-dyn-sharded"))
+    if backend == KERNEL:
+        misfit = kernel_misfit(scene, cfg, mesh)
+        if misfit is not None:
+            raise ValueError(f"the path kernel cannot render this: "
+                             f"{misfit}; use backend='xla' or 'auto'")
+        if _platform() != "gpu" and not interpret:
+            raise ValueError("the path kernel compiles for the GPU only; "
+                             "pass interpret=True to run it in the "
+                             "Pallas interpreter")
+        from drt_tpu.fused import make_kernel_image_renderer, seeds_from_key
+        kernel = make_kernel_image_renderer(scene, cam, cfg,
+                                            interpret=interpret)
 
         def render(params: Params, key) -> jnp.ndarray:
-            return fused(params, seeds_from_key(key))
-
-        return jax.jit(render)
-    if backend in ("pallas-split", "pallas-split-dyn"):
-        if mesh is not None:
-            raise ValueError(f"{backend} is single-chip over one tape; "
-                             "auto picks the sharded split path when "
-                             "the lane count tiles over the mesh")
-        from drt_tpu.fused import (make_split_dyn_image_renderer,
-                                   make_split_fused_image_renderer,
-                                   seeds_from_key)
-        make = (make_split_fused_image_renderer
-                if backend == "pallas-split"
-                else make_split_dyn_image_renderer)
-        fused = make(scene, cam, cfg)
-
-        def render(params: Params, key) -> jnp.ndarray:
-            return fused(params, seeds_from_key(key))
-
-        return jax.jit(render)
-    if backend in ("pallas-regen", "pallas-dyn-regen"):
-        if mesh is not None:
-            raise ValueError(f"{backend} is single-chip; use "
-                             f"{backend}-sharded for meshes")
-        from drt_tpu.fused import (make_dyn_regen_image_renderer,
-                                   make_regen_image_renderer,
-                                   seeds_from_key)
-        make = (make_regen_image_renderer if backend == "pallas-regen"
-                else make_dyn_regen_image_renderer)
-        fused = make(scene, cam, cfg)
-
-        def render(params: Params, key) -> jnp.ndarray:
-            return fused(params, seeds_from_key(key))
-
-        return jax.jit(render)
-    if backend in ("pallas-regen-sharded", "pallas-dyn-regen-sharded"):
-        if mesh is None:
-            raise ValueError(f"{backend} requires a mesh")
-        from drt_tpu.fused import (make_sharded_dyn_regen_image_renderer,
-                                   make_sharded_regen_image_renderer,
-                                   seeds_from_key)
-        make = (make_sharded_regen_image_renderer
-                if backend == "pallas-regen-sharded"
-                else make_sharded_dyn_regen_image_renderer)
-        fused = make(scene, cam, cfg, mesh)
-
-        def render(params: Params, key) -> jnp.ndarray:
-            return fused(params, seeds_from_key(key))
-
-        return jax.jit(render)
-    if backend in ("pallas", "pallas-dyn"):
-        if mesh is not None:
-            raise ValueError(f"{backend} backend is single-chip; use "
-                             f"{backend}-sharded or xla for meshes")
-        from drt_tpu.fused import (make_dyn_image_renderer,
-                                   make_fused_image_renderer,
-                                   seeds_from_key)
-        make = (make_fused_image_renderer if backend == "pallas"
-                else make_dyn_image_renderer)
-        fused = make(scene, cam, cfg)
-
-        def render(params: Params, key) -> jnp.ndarray:
-            return fused(params, seeds_from_key(key))
-
-        return jax.jit(render)
-    if backend in ("pallas-sharded", "pallas-dyn-sharded"):
-        if mesh is None:
-            raise ValueError(f"{backend} backend requires a mesh")
-        from drt_tpu.fused import (make_sharded_dyn_image_renderer,
-                                   make_sharded_fused_image_renderer,
-                                   seeds_from_key)
-        make = (make_sharded_fused_image_renderer
-                if backend == "pallas-sharded"
-                else make_sharded_dyn_image_renderer)
-        fused = make(scene, cam, cfg, mesh)
-
-        def render(params: Params, key) -> jnp.ndarray:
-            return fused(params, seeds_from_key(key))
+            return kernel(params, seeds_from_key(key))
 
         return jax.jit(render)
 
@@ -242,7 +145,6 @@ def make_renderer(scene: Scene, cfg: RenderConfig, cam: Camera,
         constrain = None
 
     if differentiable:
-        _check_xla_diff_size(scene, cfg)
         diff = make_diff_image_renderer(scene, cam, cfg,
                                         constrain=constrain)
 

@@ -50,7 +50,7 @@ BWD_SALT = 0x0ADD
 class BounceResiduals(NamedTuple):
     """Per-bounce values stacked over depth, consumed by the adjoint.
     Scalarized SoA: P is a V3 of f[D, N] arrays, so every stacked buffer
-    is rank-2 with the huge ray axis minor (padding-free TPU layout)."""
+    is rank-2 with the huge ray axis minor."""
 
     P: V3  # V3 of f[D, N]: emission weight (gated throughput prefix)
     sc: jnp.ndarray  # f[D, N] scalar factor s*cos/pdf so w = albedo[aid]*sc

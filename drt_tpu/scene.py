@@ -3,9 +3,9 @@
 The reference models a scene as `std::vector<Shape<T>*>` of virtual-dispatch
 objects holding `shared_ptr` BxDFs/Emitters (reference: include/drt/
 pathtracer.hpp:12-13, shape.hpp:11-35, bxdf.hpp:12-25, emitter.hpp:7-13).
-On TPU, virtual dispatch becomes data: flat arrays of shape/material codes
+Here virtual dispatch becomes data: flat arrays of shape/material codes
 that the wavefront tracer gathers from and selects over with masks. The
-scene is tiny and replicated per chip; only `Params` is differentiable.
+scene is tiny and replicated per device; only `Params` is differentiable.
 
 Sentinel conventions (so gathers never need branches):
   - a shape with no BxDF points at material row M (type NULL -> f = 0,

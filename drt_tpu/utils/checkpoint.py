@@ -2,8 +2,8 @@
 
 The reference renders once and exits (src/render.cpp:72-92); the recovery
 loop (BASELINE.json config 4) needs resumable state: params + Adam moments
-+ RNG key + iteration. Uses orbax; falls back to a NumPy .npz container if
-orbax is unavailable at runtime.
++ RNG key + iteration. Each checkpoint is one NumPy .npz file, written
+to a temporary name and renamed into place.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ import jax
 import numpy as np
 
 from drt_tpu.optim import TrainState
+
+_PREFIX = "step_"
 
 
 def save(path: str, state: TrainState, key) -> None:
@@ -32,85 +34,23 @@ def save(path: str, state: TrainState, key) -> None:
 def restore(path: str, like: TrainState):
     """Restore (TrainState, key) saved by `save`. `like` supplies the
     pytree structure (build it with optim.init_state on init params)."""
-    data = np.load(path)
-    flat, treedef = jax.tree.flatten(like)
-    leaves = [data[f"leaf_{i}"] for i in range(len(flat))]
-    state = jax.tree.unflatten(treedef, leaves)
-    key = jax.random.wrap_key_data(data["key_data"])
-    return state, key
+    with np.load(path) as data:
+        flat, treedef = jax.tree.flatten(like)
+        leaves = [data[f"leaf_{i}"] for i in range(len(flat))]
+        key = jax.random.wrap_key_data(data["key_data"])
+    return jax.tree.unflatten(treedef, leaves), key
 
 
-# -- orbax backend (multi-host-capable, async-friendly) ----------------------
-
-# One CheckpointManager per directory, reused across saves/restores in a
-# training loop (constructing a fresh manager per save is O(steps)
-# directory-scan churn). Closed explicitly via close_orbax(), or by the
-# atexit hook registered on first construction (orbax managers own
-# background threads; leaking them past interpreter teardown races).
-_MANAGERS: dict[str, object] = {}
-_ATEXIT_REGISTERED = False
+def step_path(directory: str, step: int) -> pathlib.Path:
+    """The checkpoint file for `step` under `directory`."""
+    return pathlib.Path(directory) / f"{_PREFIX}{step:08d}.npz"
 
 
-def _manager(directory: str):
-    import orbax.checkpoint as ocp
-
-    global _ATEXIT_REGISTERED
-    key = str(pathlib.Path(directory).resolve())
-    mgr = _MANAGERS.get(key)
-    if mgr is None:
-        mgr = ocp.CheckpointManager(key)
-        _MANAGERS[key] = mgr
-        if not _ATEXIT_REGISTERED:
-            import atexit
-
-            atexit.register(close_orbax)
-            _ATEXIT_REGISTERED = True
-    return mgr
-
-
-def close_orbax(directory: str | None = None) -> None:
-    """Flush and close the cached CheckpointManager(s); call at the end
-    of a training run (waits for any async save)."""
-    keys = ([str(pathlib.Path(directory).resolve())] if directory
-            else list(_MANAGERS))
-    for k in keys:
-        mgr = _MANAGERS.pop(k, None)
-        if mgr is not None:
-            mgr.close()
-
-
-def save_orbax(directory: str, state: TrainState, key, step: int | None
-               = None) -> None:
-    """Persist a TrainState + RNG key with orbax (the TPU-ecosystem
-    checkpointing library: atomic, multi-host aware). One checkpoint per
-    `step` under `directory`."""
-    import orbax.checkpoint as ocp
-
-    step = int(state.step) if step is None else step
-    payload = {"state": state,
-               "key_data": np.asarray(jax.random.key_data(key))}
-    mgr = _manager(directory)
-    mgr.save(step, args=ocp.args.StandardSave(payload))
-    mgr.wait_until_finished()
-
-
-def restore_orbax(directory: str, like: TrainState, step: int | None = None):
-    """Restore (TrainState, key, step) from the latest (or given) orbax
-    checkpoint under `directory`. `like` supplies the pytree structure."""
-    import orbax.checkpoint as ocp
-
-    template = {"state": like,
-                "key_data": np.zeros((2,), np.uint32)}
-    mgr = _manager(directory)
-    if step is None:
-        # A long-lived cached manager caches its step listing; another
-        # process may have written newer checkpoints to the same
-        # directory since (the old per-call manager always re-scanned).
-        reload_fn = getattr(mgr, "reload", None)
-        if callable(reload_fn):
-            reload_fn()
-        step = mgr.latest_step()
-    out = mgr.restore(step, args=ocp.args.StandardRestore(template))
-    key = jax.random.wrap_key_data(
-        np.asarray(out["key_data"], np.uint32))
-    return out["state"], key, step
+def latest_step(directory: str) -> int | None:
+    """The newest step checkpointed under `directory`, or None."""
+    d = pathlib.Path(directory)
+    if not d.is_dir():
+        return None
+    steps = [int(p.stem[len(_PREFIX):]) for p in d.glob(f"{_PREFIX}*.npz")
+             if p.stem[len(_PREFIX):].isdigit()]
+    return max(steps) if steps else None

@@ -2,7 +2,7 @@
 
 The reference is single-threaded by construction; its hazards under
 threading (global libc RNG, `mutable m_grad +=`) don't exist in JAX's
-functional model. The TPU-native hazard class is *numerical*: NaN/Inf
+functional model. The hazard class here is *numerical*: NaN/Inf
 escaping masked lanes, out-of-range table indices feeding gathers. This
 module provides checkify-based wrappers that turn those into hard errors
 in tests/staging, and cheap assert helpers for scene construction.

@@ -1,7 +1,7 @@
 """On-demand build + ctypes loader for the native (C++) runtime pieces.
 
 The reference's runtime is native C++ end-to-end (image output goes
-through OpenEXR, src/write.hpp). drt_tpu keeps the TPU compute path in
+through OpenEXR, src/write.hpp). drt_tpu keeps the device compute path in
 JAX/Pallas and implements host-side runtime components natively in C++
 (native/*.cpp), compiled once on first use into a shared library and
 bound through ctypes (no pybind11 in this environment).

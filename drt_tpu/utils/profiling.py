@@ -1,13 +1,16 @@
 """Profiling & throughput counters (SURVEY.md §5 "Tracing / profiling").
 
 The reference has no profiling at all. Here: `jax.profiler` trace capture
-(Perfetto/TensorBoard-compatible) plus a blocking timer utility that
-reports rays/s for renderer workloads.
+(Perfetto/TensorBoard-compatible), the one blocking timer (median of
+runs) that bench.py, chip_smoke.py and the tools use, rays/s helpers,
+and the card's name and power limit that every timing is printed with.
 """
 
 from __future__ import annotations
 
 import contextlib
+import statistics
+import subprocess
 import time
 
 import jax
@@ -23,18 +26,19 @@ def trace(logdir: str):
         jax.profiler.stop_trace()
 
 
-def timed(fn, *args, warmup: int = 1, reps: int = 3):
-    """Best-of-reps wall-clock of a jitted function (blocks on readiness).
-    Returns (best_seconds, last_output)."""
+def timed(fn, *args, warmup: int = 1, reps: int = 5):
+    """Median wall-clock of `reps` blocking runs of a jitted function
+    after `warmup` runs (compilation included in the first). Returns
+    (median_seconds, last_output)."""
     out = None
     for _ in range(max(warmup, 0)):
         out = jax.block_until_ready(fn(*args))
-    best = float("inf")
+    ts = []
     for _ in range(reps):
         t0 = time.perf_counter()
         out = jax.block_until_ready(fn(*args))
-        best = min(best, time.perf_counter() - t0)
-    return best, out
+        ts.append(time.perf_counter() - t0)
+    return statistics.median(ts), out
 
 
 def rays_per_second(n_rays: int, seconds: float) -> float:
@@ -43,3 +47,14 @@ def rays_per_second(n_rays: int, seconds: float) -> float:
 
 def mrays_per_second(n_rays: int, seconds: float) -> float:
     return n_rays / seconds / 1e6
+
+
+def card_info() -> str:
+    """`name, power.limit` of each GPU, one per line, as nvidia-smi
+    reports them (a child process that stays off JAX). Every timing is
+    reported beside it: a card set below its maximum power runs slower."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()

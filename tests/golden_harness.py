@@ -35,7 +35,7 @@ def build() -> pathlib.Path:
         subprocess.run(
             ["g++", "-O2", "-std=c++17", f"-I{REF_INCLUDE}", str(SRC),
              "-o", str(binary)],
-            check=True, capture_output=True, text=True)
+            check=True, capture_output=True, text=True, timeout=600)
     return _build_dir / "golden"
 
 
@@ -72,7 +72,7 @@ def run(width: int, height: int, spp: int, *, min_bounces=1, absorb=0.5,
                  str(min_bounces), str(absorb), str(tape_path),
                  str(out_path), "1" if grad else "0",
                  "1" if unbiased else "0"],
-                capture_output=True, text=True)
+                capture_output=True, text=True, timeout=600)
             if proc.returncode == 3:  # tape exhausted: retry bigger
                 n_tape *= 4
                 continue

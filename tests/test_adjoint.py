@@ -277,7 +277,7 @@ def test_adjoint_samples_variance_reduction():
 def test_jvp_dual_number_ground_truth():
     """The reference validates reverse-mode grads against a forward-mode
     dual-number render (README.md:138-145, Dual<double> at
-    src/render.cpp:22-23). TPU equivalent: jax.jvp through the tape-mode
+    src/render.cpp:22-23). Equivalent here: jax.jvp through the tape-mode
     estimator is exactly that dual-number pass; for every tangent
     direction v, <vjp-grad, v> must equal the jvp tangent."""
     scene, params, cfg, o, d, tape = _setup(max_depth=6)
@@ -303,7 +303,7 @@ def test_jvp_dual_number_ground_truth():
 
 
 def test_tape_driven_unbiased_identity():
-    """bwd_tape mode (VERDICT r2 #4): the unbiased backward consumes a
+    """bwd_tape mode: the unbiased backward consumes a
     SECOND injected tape for its fresh retrace. With tape_bwd ==
     tape_fwd it must reduce EXACTLY to the biased replay — the
     sample-matched identity between integrate.hpp:26-37 (replay) and

@@ -27,7 +27,7 @@ def test_grad_uses_resolved_backend_and_unbiased_flag(tmp_path, capsys):
                    "--adjoint-samples", "2"])
     assert rc == 0
     err = capsys.readouterr().err
-    assert "gradient backend: xla" in err  # off-TPU resolution
+    assert "gradient backend: xla" in err  # CPU resolution
     data = json.load(open(out))
     assert data["unbiased"] is True
     assert data["backend"] == "xla"
@@ -60,8 +60,8 @@ def test_invalid_absorb_prob_errors(tmp_path):
 
 
 def test_invert_steps_per_call_smoke(tmp_path, capsys):
-    """`invert --steps-per-call` (the blocked train loop, VERDICT r3
-    #2b) end to end: tiny run writes the recovery JSON."""
+    """`invert --steps-per-call` (the blocked train loop) end to end:
+    tiny run writes the recovery JSON."""
     out = str(tmp_path / "inv.json")
     rc = cli.main(["invert", "-o", out, "-x", "8", "-y", "6", "-n", "4",
                    "--max-depth", "3", "--steps", "6",

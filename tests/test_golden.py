@@ -20,8 +20,14 @@ from drt_tpu.config import RenderConfig
 from drt_tpu.models import cbox
 from drt_tpu.renderer import trace_rays
 
-pytestmark = pytest.mark.skipif(not gh.golden_available(),
-                                reason="reference headers or g++ missing")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def golden_toolchain():
+    """Decided per test, never at import: the reference headers and g++
+    build the golden binary."""
+    if not gh.golden_available():
+        pytest.skip("reference headers or g++ missing")
 
 W, H, SPP, DEPTH = 10, 8, 4, 32
 
@@ -91,7 +97,7 @@ def test_unbiased_backward_matches_cpp():
     rand() stream; the NumPy oracle replays the identical stream.
     Draw-for-draw consumption equality proves identical control flow
     through the backward recursion; gradient equality pins the
-    semantics (VERDICT r2 missing-#1)."""
+    semantics."""
     w, h, spp = 6, 5, 3
     golden = gh.run(w, h, spp, grad=True, unbiased=True, seed=13)
     img, grads, tape = ref.render_mirror_unbiased(

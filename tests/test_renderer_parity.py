@@ -61,7 +61,7 @@ def test_parity_f64_deep():
 
 
 def test_parity_f32_tolerance():
-    """f32 (TPU-native) agrees with the f64 mirror within single-precision
+    """f32 agrees with the f64 mirror within single-precision
     accumulated tolerance (precision policy in SURVEY.md §7)."""
     radiance, full, trunc = _run_parity(
         width=10, height=8, spp=4, max_depth=12, min_bounces=1, absorb=0.5,

@@ -19,8 +19,14 @@ from drt_tpu.parallel.mesh import make_mesh, ray_sharding, replicated
 from drt_tpu.parallel.render import make_renderer
 from drt_tpu.renderer import render_image
 
-pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
-                                reason="needs 8 virtual devices")
+
+
+@pytest.fixture(autouse=True)
+def eight_devices():
+    """Decided per test, never at import (xdist workers must collect the
+    same tests): conftest provides 8 virtual CPU devices."""
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 virtual devices")
 
 
 @pytest.fixture(scope="module")
@@ -84,8 +90,8 @@ def test_uneven_ray_count_rejected(setup):
 
 
 def test_backend_dispatch():
-    """make_renderer backend selection: auto falls back to the XLA
-    wavefront off-TPU; the pallas backend refuses a mesh."""
+    """make_renderer backend selection: auto is the XLA wavefront off
+    the GPU; the path kernel refuses a mesh."""
     import pytest
 
     from drt_tpu.models import cbox
@@ -98,4 +104,5 @@ def test_backend_dispatch():
     img = render(params, jax.random.key(0))
     assert img.shape == (6, 8, 3)
     with pytest.raises(ValueError):
-        make_renderer(scene, cfg, cam, mesh=make_mesh(), backend="pallas")
+        make_renderer(scene, cfg, cam, mesh=make_mesh(),
+                      backend="pathkernel", interpret=True)

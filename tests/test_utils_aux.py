@@ -38,8 +38,8 @@ def test_timed_and_rates():
         calls.append(x)
         return x + 1
 
-    best, out = timed(fn, jnp.asarray(1.0), warmup=1, reps=2)
+    median, out = timed(fn, jnp.asarray(1.0), warmup=1, reps=2)
     assert float(out) == 2.0
-    assert best >= 0 and len(calls) == 3
+    assert median >= 0 and len(calls) == 3
     assert rays_per_second(1_000_000, 2.0) == 500_000
     assert mrays_per_second(2_000_000, 1.0) == 2.0

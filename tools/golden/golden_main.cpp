@@ -1,7 +1,7 @@
 // Golden-parity harness: runs the REFERENCE renderer's own headers
 // (included from /root/reference, never copied into this repo) with an
 // injected deterministic uniform stream, and dumps raw doubles for the
-// Python test suite to compare against the TPU framework.
+// Python test suite to compare against the JAX framework.
 //
 // This file is original harness code (argument parsing, tape-backed rand,
 // binary dumping); the traced scene is the reference's sample scene
